@@ -8,8 +8,11 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
 
 1. device: the card, its power limit, torch and CUDA versions; TF32 off;
 2. build: every CUDA source of the package, one nvcc each, all at once;
+   each kernel's registers, spills and shared memory;
 3. kernels against plain: each hand kernel against its plain torch version
-   on the card, at a small shape and at the main-path shape;
+   on the card, float32 and bfloat16, at small shapes whose bonds do not
+   fill the kernels' tiles (MPS D 40, MPO D 24 and 48) and at the main-path
+   shapes;
 4. main path through the user entry points: the three README examples via
    ``TN.contract``, the flagship batched ``MPS.evaluate`` (1000 sites x d 2
    x bond 64 x batch 4096, float32), the carry-returning evaluation at the
@@ -18,7 +21,8 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    its path and read just after, and a small sample of each is held against
    a float64 reference;
 5. times: each kernel and its plain version with CUDA events (median of 7
-   after a warm-up), beside the least time the card could take.
+   after a warm-up), beside the least time the card could take for
+   fp32-accurate work (GEMMs as 3xTF32 on the tensor cores).
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -42,6 +46,7 @@ FLAGSHIP = {"n_sites": 1000, "phys": 2, "bond": 64, "batch": 4096}
 MPO_BENCH = {"n_sites": 50, "bond": 64, "batch": 1000}
 SMALL_MPS = {"n_sites": 37, "phys": 3, "bond": 40, "batch": 70}
 SMALL_MPO = {"n_sites": 7, "bond": 24, "batch": 9}
+RAGGED_MPO = {"n_sites": 6, "bond": 48, "batch": 5}  # not a multiple of 32
 
 # Agreement of log|psi| between a kernel and its plain version, scaled by
 # each sample's condition number (see mps_condition, condition, PERF.md)
@@ -51,9 +56,11 @@ TOL_F32 = 2e-3  # float32 throughout
 # ulps per unit of condition
 TOL_BF16 = 8 * 2.0 ** -8
 
-# Peak fp32 rate outside the tensor cores and HBM bandwidth of an H100 SXM
-# (NVIDIA data sheet), the card this script is written for
-PEAK_F32 = 67e12
+# Peak rates of an H100 SXM (NVIDIA data sheet, dense), the card this script
+# is written for.  fp32-accurate GEMMs run as 3xTF32: three TF32 passes.
+PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12  # fp32 outside the tensor cores (elementwise work)
 PEAK_BYTES = 3.35e12
 
 
@@ -162,9 +169,15 @@ def cuda_time(fn, reps=7):
     return sorted(times)[len(times) // 2]
 
 
-def bound_ms(flops, nbytes):
-    """Least time for the work: the larger of FLOPs/peak and bytes/bandwidth."""
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+def bound_ms(gemm_flops, elem_flops, nbytes, dtype=torch.float32):
+    """Least time for fp32-accurate work on the card: the largest of the GEMM
+    FLOPs on the tensor cores (3 TF32 passes for fp32 operands, one bf16
+    pass for bf16), the elementwise FLOPs on the fp32 units and the bytes
+    over HBM bandwidth.  Returns ``(ms, "operations" | "bytes")``."""
+    t_gemm = (3 * gemm_flops / PEAK_TF32 if dtype == torch.float32
+              else gemm_flops / PEAK_BF16)
+    t_ops = max(t_gemm, elem_flops / PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -223,16 +236,60 @@ def phase_build():
     built = sorted(logs) or "nothing (up to date)"
     log(f"built {built} in {time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = re.findall(r"[1-9]\d* bytes spill (?:stores|loads)", text)
-        log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
-            f"registers a thread, {len(spills)} nonzero spill reports")
+        log(f"  {name}:")
+        for fn, regs, spill_st, spill_ld, smem in ptxas_report(text):
+            log(f"    {fn}: {regs} registers, spills {spill_st}/{spill_ld} bytes "
+                f"(stores/loads), {smem} bytes static shared memory")
+
+
+def ptxas_report(text):
+    """``(kernel, registers, spill stores, spill loads, static smem)`` for each
+    ``__global__`` function in an ``nvcc -Xptxas -v`` report."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((_demangle(fn), int(m.group(1)), *spill,
+                         int(smem.group(1)) if smem else 0))
+            fn, spill = None, (0, 0)
+    return rows
+
+
+def _demangle(name):
+    """A short readable name for a mangled kernel template instance."""
+    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mps_chain_kernel)", name)
+    args = re.findall(r"Li(\d+)E", name)
+    dtype = "bf16" if "nv_bfloat16" in name else "f32"
+    return f"{base.group(1) if base else name}<{dtype},{','.join(args)}>"
+
+
+def kernel_smem(device):
+    """Dynamic shared memory per CTA at the main-path shapes, from the
+    kernels' own layout functions."""
+    from contractn_tpu_torch.ops import cuda_mpo, cuda_mps
+
+    mps = cuda_mps.tc_library()
+    mpo = cuda_mpo.library()
+    d, bond = FLAGSHIP["phys"], FLAGSHIP["bond"]
+    for bf16, tag in ((0, "fp32"), (1, "bf16")):
+        log(f"  #1 cn_mps_evaluate {tag} d={d} D={bond}: "
+            f"{mps.cn_mps_evaluate_smem(bf16, d, bond)} bytes dynamic shared memory")
+        log(f"  #3 cn_mpo_env {tag} d=2 D={MPO_BENCH['bond']} W=3: "
+            f"{mpo.cn_mpo_env_smem(bf16, 2, MPO_BENCH['bond'], 3)} bytes dynamic shared memory")
 
 
 def phase_kernels_vs_plain(device):
     """Every kernel against its plain version, small and main-path shapes."""
-    from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
-    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
+    from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
 
     errors = {}
     for tag, shape in (("small", SMALL_MPS), ("main", FLAGSHIP)):
@@ -255,20 +312,32 @@ def phase_kernels_vs_plain(device):
                                 cond)
             if tag == "main" and acc == torch.float32:
                 errors["mps_evaluate_epilogue"] = err
-    for tag, shape in (("small", SMALL_MPO), ("main", MPO_BENCH)):
-        mpo, cores, ones = mpo_inputs(shape, device, torch.float32, seed=3)
-        wdim, bond = mpo.cores.shape[3], shape["bond"]
-        env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
-        entries = mpo_entries(mpo)
-        weight = torch.einsum("w,i,k->wik", mpo.right, ones, ones).reshape(-1)
-        got, ref = (fn(cores, env0, entries, wdim)
-                    for fn in (cuda_mpo.mpo_env, cuda_mpo.mpo_env_plain))
-        close = [(env.reshape(env.shape[0], -1) @ weight, lg) for env, lg in (got, ref)]
-        err = compare_split(close[0], close[1], TOL_F32, f"#3 mpo_env {tag}",
-                            condition(ref[0].reshape(ref[0].shape[0], -1) * weight))
-        if tag == "main":
-            errors["mpo_env"] = err
+    for tag, shape in (("small", SMALL_MPO), ("ragged", RAGGED_MPO), ("main", MPO_BENCH)):
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            err = compare_mpo_env(shape, device, dtype, tol, f"#3 mpo_env {tag} {dtype}")
+            if tag == "main" and dtype == torch.float32:
+                errors["mpo_env"] = err
     return errors
+
+
+def compare_mpo_env(shape, device, dtype, tol, what, seed=3):
+    """Kernel #3 against its plain version: the closed environments as split
+    pairs, tolerance ``tol`` per unit of the close's condition number."""
+    from contractn_tpu_torch.ops import cuda_mpo
+    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
+
+    mpo, cores, ones = mpo_inputs(shape, device, dtype, seed=seed)
+    wdim, bond = mpo.cores.shape[3], shape["bond"]
+    env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
+    entries = mpo_entries(mpo)
+    weight = torch.einsum("w,i,k->wik", mpo.right, ones, ones).reshape(-1)
+    before = cuda_mpo.mpo_env.launches
+    got = cuda_mpo.mpo_env(cores, env0, entries, wdim)
+    assert cuda_mpo.mpo_env.launches == before + 1
+    ref = cuda_mpo.mpo_env_plain(cores, env0, entries, wdim)
+    close = [(env.reshape(env.shape[0], -1) @ weight, lg) for env, lg in (got, ref)]
+    return compare_split(close[0], close[1], tol, what,
+                         condition(ref[0].reshape(ref[0].shape[0], -1) * weight))
 
 
 def reset_counters():
@@ -404,17 +473,18 @@ def phase_times(device):
     out = {}
     n, d, bond, batch = (FLAGSHIP[k] for k in ("n_sites", "phys", "bond", "batch"))
     cores, left, right, x = mps_inputs(FLAGSHIP, device, torch.float32, seed=5)
-    flops = batch * n * (2 * d * bond * bond + 2 * d * bond)
+    gemm = batch * n * 2 * d * bond * bond
+    elem = batch * n * (2 * d * bond + 3 * bond)  # x-weighted sum, L1 mean, rescale
     in_bytes = 4 * (cores.numel() + x.numel() + 2 * bond)
     out["mps_evaluate"] = (
         cuda_time(lambda: cuda_mps.cuda_mps_evaluate(cores, left, right, x)),
         cuda_time(lambda: cuda_mps.mps_evaluate_plain(cores, left, right, x), reps=5),
-        *bound_ms(flops, in_bytes + 8 * batch),
+        *bound_ms(gemm, elem, in_bytes + 8 * batch),
     )
     out["mps_evaluate_epilogue"] = (
         cuda_time(lambda: cuda_epilogue.epilogue_chain(cores, left, x)),
         cuda_time(lambda: cuda_epilogue.epilogue_chain_plain(cores, left, x), reps=5),
-        *bound_ms(flops, in_bytes + 4 * batch * (bond + 1)),
+        *bound_ms(gemm, elem, in_bytes + 4 * batch * (bond + 1)),
     )
     mpo, mcores, ones = mpo_inputs(MPO_BENCH, device, torch.float32, seed=6)
     wdim = mpo.cores.shape[3]
@@ -422,12 +492,14 @@ def phase_times(device):
     env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
     entries = mpo_entries(mpo)
     b, n, d = MPO_BENCH["batch"], MPO_BENCH["n_sites"], mcores.shape[2]
-    per_site = 4 * d * wdim * bond ** 3 + 2 * len(entries) * bond ** 2
+    # per sample and site: d*W ket and W bra GEMMs; the mix and the rescale
+    gemm_site = 4 * d * wdim * bond ** 3
+    elem_site = 2 * len(entries) * bond ** 2 + 3 * wdim * bond ** 2
     out["mpo_env"] = (
         cuda_time(lambda: cuda_mpo.mpo_env(mcores, env0, entries, wdim)),
         cuda_time(lambda: cuda_mpo.mpo_env_plain(mcores, env0, entries, wdim), reps=5),
-        *bound_ms(b * n * per_site, 4 * (mcores.numel() + env0.numel()
-                                         + b * (wdim * bond * bond + 1))),
+        *bound_ms(b * n * gemm_site, b * n * elem_site,
+                  4 * (mcores.numel() + env0.numel() + b * (wdim * bond * bond + 1))),
     )
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
@@ -436,7 +508,7 @@ def phase_times(device):
 
 
 SOURCES = {
-    "mps_evaluate": ("contractn_tpu_torch/csrc/mps_chain.cu",
+    "mps_evaluate": ("contractn_tpu_torch/csrc/mps_chain_tc.cu",
                      "contractn_tpu/ops/pallas_mps.py:152"),
     "mps_evaluate_epilogue": ("contractn_tpu_torch/csrc/mps_chain.cu",
                               "contractn_tpu/ops/pallas_epilogue.py:128"),
@@ -459,6 +531,7 @@ def main():
     device = torch.device("cuda", 0)
     log("== 2. build")
     phase_build()
+    kernel_smem(device)
     log("== 3. kernels against their plain versions")
     errors = phase_kernels_vs_plain(device)
     log("== 4. main path")

@@ -1,242 +1,392 @@
-// Batched MPO expectation environments: <psi_b| H |psi_b> for per-sample MPS
-// cores (B, N, d, D, D) and one uniform MPO core W[d, e, w, v].
+// Batched MPO expectation environments on Hopper's tensor cores:
+// <psi_b| H |psi_b> for per-sample MPS cores (B, N, d, D, D) and one uniform
+// MPO core W[d, e, w, v].
 //
-// Replaces the Pallas TPU kernel contractn_tpu/ops/pallas_mpo.py _kernel
-// (launched by _mpo_pallas_run).  As there, the kernel returns the final
-// environment (B, W*D, D) fp32 and the log register; the close with the
-// boundary vectors runs outside.
+// Replaces the Pallas TPU kernel contractn_tpu/ops/pallas_mpo.py:134
+// (_kernel, launched by _mpo_pallas_run).  As there, the kernel returns the
+// final environment (B, W*D, D) fp32 and the log register; the close with
+// the boundary vectors runs outside.  Entry: cn_mpo_env.
 //
-// Bound (H100, fp32 cores, W = 3, D = 64, d = 2): per sample and site
-// 2*d*W*D^3 (ket) + 2*W*d*D^3 (bra) FLOPs against d*D*D*4 bytes of cores:
-// ~190 FLOP per byte, above the fp32 ridge point, so fp32 FMA throughput bounds
-// it; the cores stream from HBM exactly once.
+// Bound (H100 SXM, fp32 cores, W = 3, D = 64, d = 2, B = 1000, N = 50): per
+// sample and site 2*d*W*D^3 (ket) + 2*W*d*D^3 (bra) GEMM FLOPs, 3.15e11 in
+// all, on 1.64 GB of cores.  fp32-accurate products run as 3xTF32 (three
+// TF32 passes at 495 TFLOP/s): 1.91 ms, above the 0.49 ms the cores take to
+// stream from HBM once.  bf16 cores take one bf16 pass (989 TFLOP/s).
 //
-// Design (a simple, correct first version: fp32 FMA, no wgmma, no TMA):
-//   * The TPU walked the sites as a sequential grid axis with the
-//     environment in VMEM scratch.  Here one CTA owns one sample and loops
-//     over all N sites; the environment never leaves shared memory.
-//   * Shared memory per CTA (fp32): env E (W*D, D+1) padded, t (d*W, D, D)
-//     and this site's core A (d, D, D) -- 182 KB at W = 3, D = 64, d = 2,
-//     one CTA per SM, opted in with cudaFuncSetAttribute.
-//   * Per site:
-//       1. ket GEMMs   t[e*W+w][i][l] = sum_k E[w][i][k] A[e][k][l]
-//       2. channel mix in place: t2[v*d+p] = sum_q M[v*d+p][q] t[q]  with
-//          q = e*W + w and M[v*d+p][e*W+w] = W[p, e, w, v]; each thread
-//          holds one (i, l) position of all d*W blocks in registers, so t2
-//          overwrites t without a second buffer.  The TPU baked the nonzero
-//          W entries in as immediates; nvcc builds once, so they arrive as
-//          this small dense matrix (a zero entry adds an exact zero).
-//       3. bra GEMMs   out[v][j][l] = sum_{p,i} A[p][i][j] t2[v*d+p][i][l],
-//          written unscaled over E (E is dead once step 1 is done);
-//       4. mean |out| over the whole environment, guard mean > MIN_NORM,
-//          E = out * (1/safe), log += log(safe)   (pallas_mpo.py:95-101).
-//   * bf16 cores: operands are rounded to bf16 where the Pallas kernel casts
-//     them (env before the ket GEMM, t2 before the bra GEMM); every GEMM
-//     accumulates in fp32.
-//   * Threads form a 16 x 16 grid; each owns a CT x CT tile (rows ty + 16a,
-//     columns tx + 16c) of every D x D product.
+// Design:
+//   * A persistent grid (one CTA of 16 warps per SM at D = 64; 8 warps with
+//     255 registers each measured slower) walks the samples; a CTA
+//     owns one sample at a time and loops over all N sites, the fp32
+//     environment E (W*D, D) resident in shared memory.  Sample boundaries
+//     do not stall the pipeline below.  (1000 samples on 132 SMs still end
+//     in a 58%-full last round: a sample is the unit of work.)
+//   * Per site, on mma.sync (3xTF32 m16n8k8 for fp32 cores, m16n8k16 bf16
+//     for bf16; see tc_common.cuh):
+//       1. ket GEMMs  t[e*W+w] = E_w A_e, (W*D x D)(D x d*D) = 192x64 . 64x128:
+//          at D > 32 each of 16 warps owns one (e, 16-row, 32-column) tile
+//          and walks all W environment blocks (W is a template parameter),
+//          so each B fragment is split once for W products, one accumulator
+//          per product (the 3 TF32 passes into it); at D <= 32 the warps take
+//          16x32 tiles of the d*W blocks in turn.  Results go to t;
+//       2. channel mix in place: t2[v*d+p] = sum_q M[v*d+p][q] t[q], one
+//          thread per (i, l) holding all d*W blocks in registers; the result
+//          is rounded to the core type (the Pallas kernel's cast before the
+//          bra GEMM).  The nonzero W entries arrive as this dense matrix (a
+//          zero entry adds an exact zero), zero-padded to 16 x 16 and
+//          passed by value as a kernel parameter: its reads are constant-bank
+//          operands of the FMAs, unrolled, and no shared-memory store can
+//          alias them;
+//       3. bra GEMMs  out[v] = A^T t2[v], (D x d*D)(d*D x D) per v, the A
+//          operand read transposed straight from the core buffer: each warp
+//          owns one fixed 16x16 (j, l) tile in every v it serves (one
+//          accumulator each, the 3 TF32 passes into it; the count is a
+//          template parameter), so one A fragment feeds all of them, and
+//          keeps them in registers;
+//       4. mean |out| over the whole environment: warp shuffles, one partial
+//          a warp in shared memory, every thread adds the 16 in a fixed
+//          order; guard mean > MIN_NORM, E = out * (1/safe) written from the
+//          registers (to env_out at the last site), log += log(safe).
+//     The environment is cast to the core type as the ket's A operand, as in
+//     the Pallas kernel; every GEMM accumulates in fp32.
+//     All K loops run the padded width (32 or 64) at compile time, unrolled
+//     by 2 (fully unrolled they spill at the 128 registers a thread has).
+//   * Async copies: the next (sample, site)'s core (d, D, D), 32 KB at fp32,
+//     lands in the second of two shared buffers by the TMA (cp.async.bulk,
+//     one row per copy, spread over the threads, completion on an mbarrier)
+//     while this site computes.  (The cores are (B, N, d, D, D), 1.6 GB at
+//     the bench shape: the padded copy that lets kernel #1 fetch a whole
+//     core in one request would move 3.5 GB more through HBM a call.)
+//   * Shared memory (fp32, W = 3, D = 64, d = 2): E 52,224 B (rows padded to
+//     D + 4 floats: it is read in the A pattern) + t 98,304 B (unpadded,
+//     XOR-swizzled, tc_common.cuh swz: read in the B pattern) + 2 core
+//     buffers 73,728 B (rows padded to D + 8) + partials 64 B + barriers 16 B
+//     = 224,336 B of the 232,448 B a block may opt in to.  Rows and columns
+//     past D (D < 32 or 64, the tiles' sizes) stay zero.
+//
+// The operand layout asks for D * sizeof(T) to be a multiple of 16 bytes;
+// the wrapper pads the bond with zeros otherwise (ops/cuda_mpo.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "tc_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTX = 16;
-constexpr int kMaxMix = 16;  // d * W
+using namespace cn;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBraN = 2;     // n8 fragments across a bra tile (16 columns)
+constexpr int kMaxMix = 16;  // d * W
+constexpr int kMaxBra = 4;   // bra tiles a warp keeps in registers
+constexpr int kSmemLimit = 232448;
+
+// Channel mix M[o][q], o = v*d + p, q = e*W + w, zero-padded to 16 x 16
+struct Mix {
+  float m[kMaxMix * kMaxMix];
+};
+
+struct Layout {
+  int ld, stage_elems;
+  int env, t, core, red, bar, total;  // byte offsets, total bytes
+};
 
 template <typename T>
-__device__ __forceinline__ float as_operand(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float as_operand<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__host__ __device__ Layout make_layout(int phys, int dp, int wdim) {
+  Layout L;
+  const int nq = phys * wdim;
+  L.ld = dp + 4;
+  L.stage_elems = phys * dp * core_ld(dp);
+  L.env = 0;
+  L.t = L.env + wdim * dp * L.ld * 4;
+  L.core = L.t + nq * dp * dp * 4;
+  L.red = L.core + 2 * L.stage_elems * (int)sizeof(T);
+  L.bar = L.red + kWarps * 4;
+  L.total = L.bar + 2 * 8;
+  return L;
 }
 
-template <typename T, int CT>
+// Bra tiles: a (j, l) tile of 16 x 8*kBraN; a warp serves every v_step-th v
+// with one tile of fixed (j, l), at most kMaxBra of them
+__host__ __device__ constexpr int bra_vstep(int dp) {
+  return kWarps / ((dp / 16) * (dp / (8 * kBraN)));
+}
+__host__ __device__ constexpr int max_wdim(int dp) { return kMaxBra * bra_vstep(dp); }
+
+// t2 = M t in place at every (i, l), MQ >= d*W
+template <typename T, int MQ, int DP>
+__device__ __forceinline__ void channel_mix(float* t_s, const Mix& mix, int nq) {
+  for (int p = threadIdx.x; p < DP * DP; p += kThreads) {  // rows, columns past D hold 0
+    const int i = p / DP, l = p % DP;
+    float in[MQ];
+#pragma unroll
+    for (int q = 0; q < MQ; ++q) in[q] = q < nq ? t_s[swz<T>(q * DP + i, l, DP)] : 0.f;
+#pragma unroll
+    for (int o = 0; o < MQ; ++o) {
+      if (o >= nq) break;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < MQ; ++q) s = fmaf(mix.m[o * kMaxMix + q], in[q], s);
+      t_s[swz<T>(o * DP + i, l, DP)] = as_operand<T>(s);
+    }
+  }
+}
+
+template <typename T, int DP, int NBRA>
 __global__ void __launch_bounds__(kThreads)
 mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
-               const float* __restrict__ mix, float* __restrict__ env_out,
-               float* __restrict__ log_out, int n_sites, int phys, int bond, int wdim,
-               float thr) {
-  extern __shared__ float smem[];
-  const int dd = bond * bond;
-  const int es = bond + 1;
+               const __grid_constant__ Mix mix, float* __restrict__ env_out,
+               float* __restrict__ log_out, int batch, int n_sites, int phys, int bond, int wdim,
+               float count, float thr) {
+  using Op = Tc<T>;
+  constexpr int KS = Op::kK;
+  constexpr bool kSplit = sizeof(T) == 4;
+  constexpr int T16 = DP / 16, T32 = DP / 32;
+  constexpr int TB = DP / (8 * kBraN);
+  constexpr int kPerV = T16 * TB;  // bra tiles per v, divides kWarps
+  constexpr int NKS = DP / KS;
+  constexpr int CLD = core_ld(DP);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = make_layout<T>(phys, DP, wdim);
+  float* e_s = reinterpret_cast<float*>(smem + L.env);  // (W*DP, ld), padded rows
+  float* t_s = reinterpret_cast<float*>(smem + L.t);    // (nq*DP, DP), swizzled
+  T* c_s = reinterpret_cast<T*>(smem + L.core);         // 2 x (d*DP, CLD)
+  float* red_s = reinterpret_cast<float*>(smem + L.red);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  const int ld = L.ld;
+
+  const int warp = threadIdx.x >> 5, lane = lane_id();
+  const int g = lane >> 2, t = lane & 3;
   const int nq = phys * wdim;
-  float* e_s = smem;                     // (wdim * bond, bond + 1)
-  float* t_s = e_s + wdim * bond * es;   // (nq, bond, bond)
-  float* a_s = t_s + nq * dd;            // (phys, bond, bond)
-  float* m_s = a_s + phys * dd;          // (nq, nq)
-  float* red_s = m_s + nq * nq;          // (kThreads / 32,)
+  const int dd = bond * bond;
+  const int per_cta = (batch - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int items = per_cta * n_sites;
+  // this warp's bra tile: fixed (j, l) block, v = v0 + r * kWarps / kPerV
+  const int mj = (warp % kPerV) / TB, nl = (warp % kPerV) % TB;
+  const int v0 = warp / kPerV;
 
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const size_t sample = (size_t)blockIdx.x * n_sites * phys * dd;
+  zero_shared(reinterpret_cast<float*>(smem), L.total / 4);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int e = threadIdx.x; e < wdim * dd; e += kThreads) e_s[(e / bond) * es + e % bond] = env0[e];
-  for (int e = threadIdx.x; e < nq * nq; e += kThreads) m_s[e] = mix[e];
+  auto sample_of = [&](int it) { return (int)blockIdx.x + (it / n_sites) * (int)gridDim.x; };
+  auto fetch = [&](int it) {
+    if (it < items)
+      stage_core(c_s + (it & 1) * L.stage_elems,
+                 cores + ((size_t)sample_of(it) * n_sites + it % n_sites) * phys * dd, phys, bond,
+                 DP, CLD, &bar[it & 1]);
+  };
+  fetch(0);
   float log_acc = 0.f;
 
-  for (int n = 0; n < n_sites; ++n) {
-    const T* core = cores + sample + (size_t)n * phys * dd;
-    for (int e = threadIdx.x; e < phys * dd; e += kThreads) a_s[e] = load_f32(core + e);
-    __syncthreads();
+  for (int it = 0; it < items; ++it) {
+    const int n = it % n_sites;
+    const int b = sample_of(it);
+    fetch(it + 1);
+    if (n == 0) {
+      for (int e = threadIdx.x; e < wdim * dd; e += kThreads) {
+        const int r = e / bond, k = e - r * bond;  // r = w * bond + i
+        e_s[((r / bond) * DP + r % bond) * ld + k] = env0[e];
+      }
+      log_acc = 0.f;
+    }
+    mbar_wait(&bar[it & 1], (it >> 1) & 1);
+    __syncthreads();  // this site's core landed; E holds the environment
+    const T* cs = c_s + (it & 1) * L.stage_elems;
 
     // 1. ket GEMMs
-    for (int w = 0; w < wdim; ++w) {
-      const float* ew = e_s + w * bond * es;
-      for (int e = 0; e < phys; ++e) {
-        const float* ae = a_s + e * dd;
-        float acc[CT][CT];
+    if constexpr (DP == 64) {
+      // a warp owns one (e, 16-row, 32-column) tile and walks all W = NBRA
+      // environment blocks, so each B fragment is split once for W products
+      for (int tile = warp; tile < phys * T16 * T32; tile += kWarps) {
+        const int e = tile / (T16 * T32), r = tile % (T16 * T32);
+        const int mi = r / T32, ni = r % T32;
+        const T* B = cs + e * DP * CLD + ni * 32;
+        float acc[NBRA][4][4] = {};
+#pragma unroll 2  // full unrolling spills at 128 registers
+        for (int ks = 0; ks < NKS; ++ks) {
+          typename Op::BFrag bf[4];
 #pragma unroll
-        for (int a = 0; a < CT; ++a)
+          for (int nt = 0; nt < 4; ++nt)
+            Op::load_b(bf[nt], [&](int rr, int c) { return B[(ks * KS + rr) * CLD + nt * 8 + c]; },
+                       g, t);
 #pragma unroll
-          for (int c = 0; c < CT; ++c) acc[a][c] = 0.f;
-        for (int k = 0; k < bond; ++k) {
-          float ev[CT], av[CT];
+          for (int w = 0; w < NBRA; ++w) {
+            const float* A = e_s + (w * DP + mi * 16) * ld;
+            typename Op::AFrag af;  // bf16: packing E rounds it, the Pallas cast
+            Op::load_a(af, [&](int rr, int c) { return A[rr * ld + ks * KS + c]; }, g, t);
 #pragma unroll
-          for (int a = 0; a < CT; ++a) {
-            const int i = ty + kTX * a;
-            ev[a] = i < bond ? as_operand<T>(ew[i * es + k]) : 0.f;
+            for (int nt = 0; nt < 4; ++nt) Op::mma(acc[w][nt], af, bf[nt]);
           }
-#pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            const int l = tx + kTX * c;
-            av[c] = l < bond ? ae[k * bond + l] : 0.f;
-          }
-#pragma unroll
-          for (int a = 0; a < CT; ++a)
-#pragma unroll
-            for (int c = 0; c < CT; ++c) acc[a][c] = fmaf(ev[a], av[c], acc[a][c]);
         }
-        float* tq = t_s + (e * wdim + w) * dd;
 #pragma unroll
-        for (int a = 0; a < CT; ++a)
+        for (int w = 0; w < NBRA; ++w)
 #pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            const int i = ty + kTX * a, l = tx + kTX * c;
-            if (i < bond && l < bond) tq[i * bond + l] = acc[a][c];
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int row = (e * wdim + w) * DP + mi * 16 + g + 8 * (c >> 1);
+              const int col = ni * 32 + nt * 8 + 2 * t + (c & 1);
+              t_s[swz<T>(row, col, DP)] = acc[w][nt][c];
+            }
+      }
+    } else {
+      // 16 x 32 tiles of the d*W blocks in turn
+      for (int tile = warp; tile < nq * T16 * T32; tile += kWarps) {
+        const int q = tile / (T16 * T32), r = tile % (T16 * T32);
+        const int mi = r / T32, ni = r % T32;
+        const int e = q / wdim, w = q % wdim;
+        const float* A = e_s + (w * DP + mi * 16) * ld;
+        const T* B = cs + e * DP * CLD + ni * 32;
+        float big[4][4] = {}, small[4][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < NKS; ++ks) {
+          typename Op::AFrag af;
+          Op::load_a(af, [&](int rr, int c) { return A[rr * ld + ks * KS + c]; }, g, t);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            typename Op::BFrag bf;
+            Op::load_b(bf, [&](int rr, int c) { return B[(ks * KS + rr) * CLD + nt * 8 + c]; }, g,
+                       t);
+            Op::mma(big[nt], small[nt], af, bf);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int row = q * DP + mi * 16 + g + 8 * (c >> 1);
+            const int col = ni * 32 + nt * 8 + 2 * t + (c & 1);
+            t_s[swz<T>(row, col, DP)] = kSplit ? big[nt][c] + small[nt][c] : big[nt][c];
           }
       }
     }
     __syncthreads();
 
     // 2. channel mix, in place
-    for (int p = threadIdx.x; p < dd; p += kThreads) {
-      float in[kMaxMix];
-#pragma unroll
-      for (int q = 0; q < kMaxMix; ++q) in[q] = q < nq ? t_s[q * dd + p] : 0.f;
-      for (int o = 0; o < nq; ++o) {
-        float s = 0.f;
-#pragma unroll
-        for (int q = 0; q < kMaxMix; ++q)
-          if (q < nq) s = fmaf(m_s[o * nq + q], in[q], s);
-        t_s[o * dd + p] = as_operand<T>(s);
-      }
-    }
+    if (nq <= 8)
+      channel_mix<T, 8, DP>(t_s, mix, nq);
+    else
+      channel_mix<T, kMaxMix, DP>(t_s, mix, nq);
     __syncthreads();
 
-    // 3. bra GEMMs, unscaled into E
-    float part = 0.f;
-    for (int v = 0; v < wdim; ++v) {
-      const float* t2 = t_s + v * phys * dd;  // rows (p, i) contiguous
-      float acc[CT][CT];
+    // 3. bra GEMMs: this warp's (j, l) tile in every v it serves
+    float keep[NBRA][kBraN][4] = {};
+    for (int p = 0; p < phys; ++p) {
+      const T* A = cs + p * DP * CLD + mj * 16;  // A^T: row (p, i), column j
+#pragma unroll 2
+      for (int ks = 0; ks < NKS; ++ks) {
+        typename Op::AFrag af;
+        Op::load_a(af, [&](int row, int c) { return A[(ks * KS + c) * CLD + row]; }, g, t);
 #pragma unroll
-      for (int a = 0; a < CT; ++a)
+        for (int r = 0; r < NBRA; ++r) {
+          const int v = v0 + r * bra_vstep(DP);
+          if (bra_vstep(DP) > 1 && v >= wdim) continue;  // W not a multiple of v_step
+          const float* B = t_s + (v * phys + p) * DP * DP;  // t2[v], rows (p, i)
 #pragma unroll
-        for (int c = 0; c < CT; ++c) acc[a][c] = 0.f;
-      for (int q = 0; q < phys * bond; ++q) {
-        float av[CT], tv[CT];
-#pragma unroll
-        for (int a = 0; a < CT; ++a) {
-          const int j = ty + kTX * a;
-          av[a] = j < bond ? a_s[q * bond + j] : 0.f;
-        }
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int l = tx + kTX * c;
-          tv[c] = l < bond ? t2[q * bond + l] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < CT; ++a)
-#pragma unroll
-          for (int c = 0; c < CT; ++c) acc[a][c] = fmaf(av[a], tv[c], acc[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < CT; ++a)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int j = ty + kTX * a, l = tx + kTX * c;
-          if (j < bond && l < bond) {
-            e_s[(v * bond + j) * es + l] = acc[a][c];
-            part += fabsf(acc[a][c]);
+          for (int nt = 0; nt < kBraN; ++nt) {
+            typename Op::BFrag bf;
+            Op::load_b(bf, [&](int row, int c) {
+              return B[swz<T>(ks * KS + row, nl * 8 * kBraN + nt * 8 + c, DP)];
+            }, g, t);
+            Op::mma(keep[r][nt], af, bf);
           }
         }
+      }
     }
+    float part = 0.f;
+#pragma unroll
+    for (int r = 0; r < NBRA; ++r)
+#pragma unroll
+      for (int nt = 0; nt < kBraN; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part += fabsf(keep[r][nt][c]);
 
     // 4. rescale the whole environment by its mean |.|
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (threadIdx.x % 32 == 0) red_s[threadIdx.x / 32] = part;
-    __syncthreads();
+    if (lane == 0) red_s[warp] = part;
+    __syncthreads();  // partials written; every read of E, t and this core done
     float total = 0.f;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) total += red_s[w];
-    const float norm = __fdiv_rn(total, (float)(wdim * dd));
+    for (int w = 0; w < kWarps; ++w) total += red_s[w];
+    const float norm = __fdiv_rn(total, count);
     const float safe = norm > thr ? norm : 1.f;
     const float inv = __fdiv_rn(1.f, safe);
     log_acc += logf(safe);
-    for (int v = 0; v < wdim; ++v)
+    const bool last = n == n_sites - 1;
+    float* out = env_out + (size_t)b * wdim * dd;
 #pragma unroll
-      for (int a = 0; a < CT; ++a)
+    for (int r = 0; r < NBRA; ++r) {
+      const int v = v0 + r * bra_vstep(DP);
+      if (v >= wdim) break;
 #pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int j = ty + kTX * a, l = tx + kTX * c;
-          if (j < bond && l < bond) e_s[(v * bond + j) * es + l] *= inv;
+      for (int nt = 0; nt < kBraN; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = mj * 16 + g + 8 * (c >> 1);
+          const int l = nl * 8 * kBraN + nt * 8 + 2 * t + (c & 1);
+          const float val = keep[r][nt][c] * inv;
+          if (!last)
+            e_s[(v * DP + j) * ld + l] = val;
+          else if (j < bond && l < bond)
+            out[(v * bond + j) * bond + l] = val;
         }
+    }
+    if (last && threadIdx.x == 0) log_out[b] = log_acc;
   }
-  __syncthreads();
-  float* out = env_out + (size_t)blockIdx.x * wdim * dd;
-  for (int e = threadIdx.x; e < wdim * dd; e += kThreads) out[e] = e_s[(e / bond) * es + e % bond];
-  if (threadIdx.x == 0) log_out[blockIdx.x] = log_acc;
 }
 
-size_t smem_bytes(int phys, int bond, int wdim) {
-  const size_t nq = (size_t)phys * wdim;
-  return sizeof(float) * ((size_t)wdim * bond * (bond + 1) + nq * bond * bond +
-                          (size_t)phys * bond * bond + nq * nq + kThreads / 32);
-}
-
-template <typename T, int CT>
-int launch(const void* cores, const float* env0, const float* mix, float* env_out,
-           float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float thr,
+template <typename T, int DP, int NBRA>
+int launch(const void* cores, const float* env0, const Mix& mix, float* env_out, float* log_out,
+           int batch, int n_sites, int phys, int bond, int wdim, float count, float thr,
            cudaStream_t stream) {
-  auto kernel = mpo_env_kernel<T, CT>;
-  const size_t smem = smem_bytes(phys, bond, wdim);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (wdim > max_wdim(DP) || (DP == 64 && wdim != NBRA)) return (int)cudaErrorInvalidValue;
+  const int smem = make_layout<T>(phys, DP, wdim).total;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  auto kernel = mpo_env_kernel<T, DP, NBRA>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<batch, kThreads, smem, stream>>>(static_cast<const T*>(cores), env0, mix, env_out,
-                                            log_out, n_sites, phys, bond, wdim, thr);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  const int slots = sms * (per_sm > 0 ? per_sm : 1);
+  kernel<<<batch < slots ? batch : slots, kThreads, smem, stream>>>(
+      static_cast<const T*>(cores), env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
+      count, thr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_bond(const void* cores, const float* env0, const float* mix, float* env_out,
-                  float* log_out, int batch, int n_sites, int phys, int bond, int wdim,
-                  float thr, cudaStream_t stream) {
-  if (phys * wdim > kMaxMix) return (int)cudaErrorInvalidValue;
-  if (bond <= 16)
-    return launch<T, 1>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim, thr, stream);
-  if (bond <= 32)
-    return launch<T, 2>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim, thr, stream);
-  if (bond <= 64)
-    return launch<T, 4>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim, thr, stream);
+int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_out,
+             float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float count,
+             float thr, cudaStream_t stream) {
+  if (phys * wdim > kMaxMix || (bond * (int)sizeof(T)) % 16 != 0) return (int)cudaErrorInvalidValue;
+#define CN_LAUNCH(DP, NBRA)                                                                    \
+  return launch<T, DP, NBRA>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim, \
+                             count, thr, stream)
+  if (bond <= 32) {
+    if (wdim <= bra_vstep(32)) CN_LAUNCH(32, 1);
+    CN_LAUNCH(32, kMaxBra);
+  }
+  if (bond <= 64) {
+    switch (wdim) {
+      case 1: CN_LAUNCH(64, 1);
+      case 2: CN_LAUNCH(64, 2);
+      case 3: CN_LAUNCH(64, 3);
+      default: CN_LAUNCH(64, kMaxBra);
+    }
+  }
+#undef CN_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -244,17 +394,32 @@ int dispatch_bond(const void* cores, const float* env0, const float* mix, float*
 
 extern "C" {
 
-// cores (B, N, d, D, D) fp32 or bf16; env0 (W*D, D) fp32; mix (d*W, d*W)
-// fp32; writes env_out (B, W*D, D) fp32 and log_out (B,) fp32.
-int cn_mpo_env(const void* cores, int cores_bf16, const float* env0, const float* mix,
+// cores (B, N, d, D, D) fp32 or bf16 with D * sizeof(T) a multiple of 16
+// (zero-padded by the wrapper); env0 (W*D, D) fp32 on the device; mix
+// (16, 16) fp32 in host memory, M[v*d+p][e*W+w] zero-padded; `count` the
+// unpadded W*D*D (the divisor of the mean).  Writes env_out (B, W*D, D) fp32
+// and log_out (B,) fp32.
+int cn_mpo_env(const void* cores, int cores_bf16, const float* env0, const float* mix_host,
                float* env_out, float* log_out, int batch, int n_sites, int phys, int bond,
-               int wdim, float thr, void* stream) {
+               int wdim, float count, float thr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Mix mix;
+  for (int i = 0; i < kMaxMix * kMaxMix; ++i) mix.m[i] = mix_host[i];
   if (cores_bf16)
-    return dispatch_bond<__nv_bfloat16>(cores, env0, mix, env_out, log_out, batch, n_sites, phys,
-                                        bond, wdim, thr, s);
-  return dispatch_bond<float>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
-                              thr, s);
+    return dispatch<__nv_bfloat16>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond,
+                                   wdim, count, thr, s);
+  return dispatch<float>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
+                         count, thr, s);
+}
+
+// Dynamic shared memory of one CTA for these operands (bytes); -1 when the
+// bond exceeds 64 or W exceeds what the bra tiles a warp keeps can serve.
+int cn_mpo_env_smem(int cores_bf16, int phys, int bond, int wdim) {
+  if (bond > 64) return -1;
+  const int dp = bond <= 32 ? 32 : 64;
+  if (wdim > max_wdim(dp)) return -1;
+  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, dp, wdim).total
+                    : make_layout<float>(phys, dp, wdim).total;
 }
 
 }  // extern "C"

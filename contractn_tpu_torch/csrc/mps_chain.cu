@@ -1,17 +1,17 @@
-// Batched split-format MPS chain: psi(x_b) = l^T prod_n (sum_k x[b,n,k] A_n[k]) r.
+// Batched split-format MPS chain returning the carry:
+// v = l^T prod_n (sum_k x[b,n,k] A_n[k]), with a per-site L1 rescale.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
-//   contractn_tpu/ops/pallas_mps.py       _mps_kernel  (entry cn_mps_evaluate)
-//   contractn_tpu/ops/pallas_epilogue.py  _kernel      (entry cn_mps_epilogue)
-// Both walk the same chain; they differ in the rescale guard, the carry type
-// and the close, so one template serves both (MODE below) and each entry point
-// keeps the semantics of the kernel it replaces.
+// Replaces the Pallas TPU kernel contractn_tpu/ops/pallas_epilogue.py:128
+// (_kernel, launched by mps_evaluate_epilogue).  Entry: cn_mps_epilogue.
+// (Kernel #1, pallas_mps._mps_kernel, is mps_chain_tc.cu.)
 //
-// Bound (H100, fp32 cores): 2*B*N*d*D^2 multiply-adds of FLOPs against
-// B*N*d*4 + N*d*D*D*4 bytes, i.e. far above the ridge point: the kernel is
-// bound by fp32 FMA throughput (67 TFLOP/s outside the tensor cores).
+// Bound (H100, fp32 cores): 2*B*N*d*D^2 FLOPs against B*N*d*4 + N*d*D*D*4
+// bytes, far above the ridge point.  This version runs on the fp32 FMA
+// units (67 TFLOP/s); fp32-accurate work on the tensor cores (3xTF32) would
+// be bounded at 3 * FLOPs / 495 TFLOP/s.
 //
-// Design (a simple, correct first version: fp32 FMA, no wgmma, no TMA):
+// Design (a simple, correct first version: fp32 FMA, no tensor cores, no
+// async copies):
 //   * The TPU ran the site axis as a sequential grid with a scratch carry.
 //     Here one CTA owns kRows batch rows and loops over all N sites itself;
 //     nothing carries between CTAs.  kRows = 32 gives 128 CTAs at B = 4096.
@@ -19,20 +19,18 @@
 //     fp32 (read in place from the (N, d, D, D) tensor: no relayout copy;
 //     every CTA reads the same core, so it comes from L2), then computes
 //     u_k = v A_n[k] and v' = sum_k x[b,n,k] u_k in registers.
-//   * The carry lives in registers (fp32) with a shared-memory copy in the
-//     form the GEMM reads (rounded to the core type, as the Pallas kernels
-//     cast the carry before each dot).
+//   * The carry lives in registers with a shared-memory copy in the form the
+//     GEMM reads (rounded to the core type, as the Pallas kernel casts the
+//     carry before each dot).
 //   * Threads form a 16 x 16 grid: ty picks rows {ty, ty+16}, tx picks
 //     columns {tx + 16c}; the 16 threads of a row sit in one half-warp, so
 //     the per-row L1 sum is four shuffles.
 //
-// Modes:
-//   0  pallas_mps._mps_kernel:  fp32 carry, guard mean > MIN_NORM/D, close
-//      with r and a |amp| rescale in the kernel; outputs (amp, log) fp32.
-//   1  pallas_epilogue._kernel, acc_dtype fp32: guard mean > MIN_NORM;
-//      outputs the carry (B, D) fp32 and log; the close runs outside.
-//   2  pallas_epilogue._kernel, acc_dtype bf16: as 1 with a bf16 carry, every
-//      elementwise step rounded to bf16 as the plain torch version does.
+// Modes (the kernel's semantics, as pallas_epilogue._kernel):
+//   1  acc_dtype fp32: guard mean > MIN_NORM; outputs the carry (B, D) fp32
+//      and log; the close runs outside.
+//   2  acc_dtype bf16: as 1 with a bf16 carry, every elementwise step rounded
+//      to bf16 as the plain torch version does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,10 +63,9 @@ __device__ __forceinline__ float as_operand<__nv_bfloat16>(float v) {
 template <typename T, int MODE, int CJ>
 __global__ void __launch_bounds__(kThreads)
 mps_chain_kernel(const T* __restrict__ cores, const float* __restrict__ x,
-                 const float* __restrict__ left, const float* __restrict__ right,
-                 float* __restrict__ out_amp, void* __restrict__ out_v,
+                 const float* __restrict__ left, void* __restrict__ out_v,
                  float* __restrict__ out_log, int n_sites, int phys, int bond,
-                 int batch, float step_thr, float close_thr) {
+                 int batch, float step_thr) {
   extern __shared__ float smem[];
   const int core_elems = phys * bond * bond;
   const int vstride = bond + 1;  // padded: the two rows a warp reads differ in bank
@@ -174,34 +171,17 @@ mps_chain_kernel(const T* __restrict__ cores, const float* __restrict__ x,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int b = row0 + ty + 16 * r;
-    if (MODE == 0) {
-      float s = 0.f;
+    if (b < batch) {
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {
         const int j = tx + kTX * c;
-        if (j < bond) s = fmaf(v[r][c], right[j], s);
+        if (j >= bond) continue;
+        if (MODE == 2)
+          static_cast<__nv_bfloat16*>(out_v)[(size_t)b * bond + j] = __float2bfloat16_rn(v[r][c]);
+        else
+          static_cast<float*>(out_v)[(size_t)b * bond + j] = v[r][c];
       }
-#pragma unroll
-      for (int off = kTX / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off, kTX);
-      const float mag = fabsf(s);
-      const float safe = mag > close_thr ? mag : 1.f;
-      if (tx == 0 && b < batch) {
-        out_amp[b] = __fdiv_rn(s, safe);
-        out_log[b] = log_acc[r] + logf(safe);
-      }
-    } else {
-      if (b < batch) {
-#pragma unroll
-        for (int c = 0; c < CJ; ++c) {
-          const int j = tx + kTX * c;
-          if (j >= bond) continue;
-          if (MODE == 2)
-            static_cast<__nv_bfloat16*>(out_v)[(size_t)b * bond + j] = __float2bfloat16_rn(v[r][c]);
-          else
-            static_cast<float*>(out_v)[(size_t)b * bond + j] = v[r][c];
-        }
-        if (tx == 0) out_log[b] = log_acc[r];
-      }
+      if (tx == 0) out_log[b] = log_acc[r];
     }
   }
 }
@@ -211,26 +191,24 @@ size_t smem_bytes(int phys, int bond) {
 }
 
 template <typename T, int MODE, int CJ>
-int launch(const void* cores, const float* x, const float* left, const float* right,
-           float* amp, void* v_out, float* log_out, int n_sites, int phys, int bond,
-           int batch, float step_thr, float close_thr, cudaStream_t stream) {
+int launch(const void* cores, const float* x, const float* left, void* v_out, float* log_out,
+           int n_sites, int phys, int bond, int batch, float step_thr, cudaStream_t stream) {
   auto kernel = mps_chain_kernel<T, MODE, CJ>;
   const size_t smem = smem_bytes(phys, bond);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (batch + kRows - 1) / kRows;
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(cores), x, left, right, amp, v_out,
-                                           log_out, n_sites, phys, bond, batch, step_thr, close_thr);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(cores), x, left, v_out, log_out,
+                                           n_sites, phys, bond, batch, step_thr);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MODE>
-int dispatch_bond(const void* cores, const float* x, const float* left, const float* right,
-                  float* amp, void* v_out, float* log_out, int n_sites, int phys, int bond,
-                  int batch, float step_thr, float close_thr, cudaStream_t stream) {
-#define CN_LAUNCH(CJ)                                                                        \
-  return launch<T, MODE, CJ>(cores, x, left, right, amp, v_out, log_out, n_sites, phys, bond, \
-                             batch, step_thr, close_thr, stream)
+int dispatch_bond(const void* cores, const float* x, const float* left, void* v_out,
+                  float* log_out, int n_sites, int phys, int bond, int batch, float step_thr,
+                  cudaStream_t stream) {
+#define CN_LAUNCH(CJ) \
+  return launch<T, MODE, CJ>(cores, x, left, v_out, log_out, n_sites, phys, bond, batch, step_thr, stream)
   if (bond <= 16) CN_LAUNCH(1);
   if (bond <= 32) CN_LAUNCH(2);
   if (bond <= 64) CN_LAUNCH(4);
@@ -243,37 +221,25 @@ int dispatch_bond(const void* cores, const float* x, const float* left, const fl
 
 extern "C" {
 
-// Kernel #1 (pallas_mps._mps_kernel).  cores (N, d, D, D) fp32 or bf16,
-// x (B, N, d) fp32, left/right (D,) fp32; writes amp, log (B,) fp32.
-int cn_mps_evaluate(const void* cores, int cores_bf16, const float* x, const float* left,
-                    const float* right, float* amp, float* log_out, int n_sites, int phys,
-                    int bond, int batch, float step_thr, float close_thr, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cores_bf16)
-    return dispatch_bond<__nv_bfloat16, 0>(cores, x, left, right, amp, nullptr, log_out, n_sites,
-                                           phys, bond, batch, step_thr, close_thr, s);
-  return dispatch_bond<float, 0>(cores, x, left, right, amp, nullptr, log_out, n_sites, phys, bond,
-                                 batch, step_thr, close_thr, s);
-}
-
-// Kernel #2 (pallas_epilogue._kernel).  As above, but writes the carry
-// v_out (B, D) in fp32 (carry_bf16 = 0) or bf16 (carry_bf16 = 1) and log (B,).
+// Kernel #2 (pallas_epilogue._kernel).  cores (N, d, D, D) fp32 or bf16,
+// x (B, N, d) fp32, left (D,) fp32; writes the carry v_out (B, D) in fp32
+// (carry_bf16 = 0) or bf16 (carry_bf16 = 1) and log (B,) fp32.
 int cn_mps_epilogue(const void* cores, int cores_bf16, const float* x, const float* left,
                     void* v_out, int carry_bf16, float* log_out, int n_sites, int phys, int bond,
                     int batch, float step_thr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cores_bf16) {
     if (carry_bf16)
-      return dispatch_bond<__nv_bfloat16, 2>(cores, x, left, nullptr, nullptr, v_out, log_out,
-                                             n_sites, phys, bond, batch, step_thr, 0.f, s);
-    return dispatch_bond<__nv_bfloat16, 1>(cores, x, left, nullptr, nullptr, v_out, log_out,
-                                           n_sites, phys, bond, batch, step_thr, 0.f, s);
+      return dispatch_bond<__nv_bfloat16, 2>(cores, x, left, v_out, log_out, n_sites, phys, bond,
+                                             batch, step_thr, s);
+    return dispatch_bond<__nv_bfloat16, 1>(cores, x, left, v_out, log_out, n_sites, phys, bond,
+                                           batch, step_thr, s);
   }
   if (carry_bf16)
-    return dispatch_bond<float, 2>(cores, x, left, nullptr, nullptr, v_out, log_out, n_sites, phys,
-                                   bond, batch, step_thr, 0.f, s);
-  return dispatch_bond<float, 1>(cores, x, left, nullptr, nullptr, v_out, log_out, n_sites, phys,
-                                 bond, batch, step_thr, 0.f, s);
+    return dispatch_bond<float, 2>(cores, x, left, v_out, log_out, n_sites, phys, bond, batch,
+                                   step_thr, s);
+  return dispatch_bond<float, 1>(cores, x, left, v_out, log_out, n_sites, phys, bond, batch,
+                                 step_thr, s);
 }
 
 }  // extern "C"

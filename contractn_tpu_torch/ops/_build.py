@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  On first use it is
 compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the root of the
-checkout, named by a hash of the source, and loaded with :mod:`ctypes`.
+checkout, named by a hash of the source and the shared ``csrc/*.cuh``
+headers, and loaded with :mod:`ctypes`.
 Nothing is built when the package is imported: the CPU test runs import every
 module but never reach a kernel.
 """
@@ -19,7 +20,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mps_chain", "mpo_env")
+SOURCES = ("mps_chain", "mps_chain_tc", "mpo_env")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may opt in to (sm_90)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -52,7 +53,10 @@ def _nvcc():
 
 def library_path(name):
     """Where the library for ``csrc/<name>.cu`` is built."""
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

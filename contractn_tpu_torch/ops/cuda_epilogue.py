@@ -1,11 +1,12 @@
 """Hand-written CUDA kernel: batched MPS chain returning the carry.
 
 Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_epilogue.py``
-(``mps_evaluate_epilogue`` -> ``_kernel``).  It shares ``csrc/mps_chain.cu``
-with :mod:`.cuda_mps` (entry ``cn_mps_epilogue``): same chain, same bound
-(fp32 FMA throughput) and the same design — one CTA per 32-row batch tile loops
-over every site with the carry on chip.  What differs, as in the Pallas
-kernel it replaces:
+(``mps_evaluate_epilogue`` -> ``_kernel``).  The CUDA source is
+``csrc/mps_chain.cu`` (entry ``cn_mps_epilogue``), the fp32-FMA design: one
+CTA per 32-row batch tile loops over every site with the carry on chip.  It
+walks the same chain as :mod:`.cuda_mps` (whose kernel runs on the tensor
+cores, ``csrc/mps_chain_tc.cu``).  What differs, as in the Pallas kernel it
+replaces:
 
 * the carry is ``acc_dtype`` (float32 or bfloat16) and starts from
   ``left`` cast to the core dtype; the GEMM accumulates in fp32 and its

@@ -4,11 +4,15 @@ environment.
 Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_mpo.py``
 (``mpo_expectation_pallas`` / ``make_mpo_pallas_fn`` -> ``_mpo_pallas_run``
 -> ``_kernel``).  The CUDA source is ``csrc/mpo_env.cu`` (entry
-``cn_mpo_env``); its header states the bound on an H100 (fp32 FMA throughput:
-``4*d*W*D^3`` FLOPs per sample and site against ``d*D*D`` core elements) and
-the design: one CTA per sample loops over every site with the ``(W*D, D)``
-fp32 environment, the ket products and this site's core all in shared
-memory; the channel mix runs in place between the ket and bra GEMMs.
+``cn_mpo_env``); its header states the bound on an H100 (``4*d*W*D^3`` GEMM
+FLOPs per sample and site, run as 3xTF32 on the tensor cores for fp32 cores
+and as one bf16 pass for bf16) and the design: a persistent grid whose CTAs
+take one sample at a time and walk every site with the ``(W*D, D)`` fp32
+environment and the ket products resident in shared memory, the ket and bra
+GEMMs on ``mma.sync``, the channel mix in place between them, and the next
+site's core fetched by the TMA (``cp.async.bulk``, one copy a row) into a
+second buffer while this one computes.  A bond whose rows are not a whole
+number of 16-byte copies is zero-padded here first (:func:`aligned_bond`).
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 per site, ``d`` ket GEMMs ``(W D, D) x (D, D)`` with the environment cast to
@@ -36,12 +40,40 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_void_p,
     ],
+    "cn_mpo_env_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 }
 
 MAX_BOND = 64  # widest bond the environment kernel takes
 MAX_MIX = 16   # largest d * W the kernel's channel mix holds in registers
+
+
+def aligned_bond(bond, dtype):
+    """The bond the environment kernel lays out: ``bond`` rounded up so that
+    a row of ``bond`` elements of ``dtype`` is a whole number of 16-byte
+    bulk copies."""
+    step = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-bond // step) * step
+
+
+def pad_bond(t, pad, dims):
+    """``t`` with its last ``dims`` axes zero-padded by ``pad`` at the end
+    (itself when ``pad`` is 0).  Zero rows and columns leave every product
+    and sum unchanged; the kernel divides its mean by the unpadded size."""
+    if pad == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, pad) * dims)
+
+
+def aligned16(t):
+    """``t`` itself if its data starts on a 16-byte boundary, else a copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def library():
+    """The built ``csrc/mpo_env.cu`` library."""
+    return _build.load("mpo_env", _SIGNATURES)
 
 
 def mpo_entries(mpo):
@@ -104,13 +136,14 @@ def mpo_env_plain(cores, env0, entries, wdim):
     return env.reshape(batch, wdim * bond, bond), log
 
 
-def _mix_matrix(entries, phys, wdim, device):
+def _mix_matrix(entries, phys, wdim):
     """Dense channel mix ``M[v*d + p, e*W + w] = W[p, e, w, v]`` for the
-    kernel (zero entries add exact zeros, so it sums like ``entries``)."""
-    mix = np.zeros((wdim * phys, phys * wdim), np.float32)
+    kernel, zero-padded to ``(MAX_MIX, MAX_MIX)`` in host memory (a zero
+    entry adds an exact zero, so it sums like ``entries``)."""
+    mix = np.zeros((MAX_MIX, MAX_MIX), np.float32)
     for (d, e, w, v, coef) in entries:
         mix[v * phys + d, e * wdim + w] = coef
-    return torch.from_numpy(mix).to(device)
+    return mix
 
 
 def mpo_env(cores, env0, entries, wdim):
@@ -142,30 +175,35 @@ def mpo_env(cores, env0, entries, wdim):
             f"the MPO kernel takes D <= {MAX_BOND} and d*W <= {MAX_MIX}; "
             f"got D={bond}, d={phys}, W={wdim}"
         )
-    nq = phys * wdim
-    smem = 4 * (wdim * bond * (bond + 1) + nq * bond * bond + phys * bond * bond
-                + nq * nq + 8)
-    if smem > _build.SMEM_LIMIT:
+    lib = library()
+    bf16 = int(cores.dtype == torch.bfloat16)
+    smem = lib.cn_mpo_env_smem(bf16, phys, bond, wdim)
+    if smem < 0 or smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"d={phys}, D={bond}, W={wdim} needs {smem} bytes of shared memory "
-            f"per block (limit {_build.SMEM_LIMIT})"
+            f"d={phys}, D={bond}, W={wdim} does not fit the kernel's "
+            f"{_build.SMEM_LIMIT} bytes of shared memory per block"
         )
-    env0 = env0.contiguous()
-    mix = _mix_matrix(entries, phys, wdim, cores.device)
+    layout = aligned_bond(bond, cores.dtype)
+    pad = layout - bond
+    cores_k = aligned16(pad_bond(cores, pad, 2))
+    env0_k = pad_bond(env0.reshape(wdim, bond, bond), pad, 2).contiguous()
+    mix = _mix_matrix(entries, phys, wdim)
     env = torch.empty(
-        batch, wdim * bond, bond, dtype=torch.float32, device=cores.device
+        batch, wdim * layout, layout, dtype=torch.float32, device=cores.device
     )
     log = torch.empty(batch, dtype=torch.float32, device=cores.device)
-    lib = _build.load("mpo_env", _SIGNATURES)
     with torch.cuda.device(cores.device):
         rc = lib.cn_mpo_env(
-            cores.data_ptr(), int(cores.dtype == torch.bfloat16), env0.data_ptr(),
-            mix.data_ptr(), env.data_ptr(), log.data_ptr(), batch, n_sites,
-            phys, bond, wdim, ctypes.c_float(float(np.float32(MIN_NORM))),
-            _build.stream_of(cores),
+            cores_k.data_ptr(), bf16, env0_k.data_ptr(), mix.ctypes.data,
+            env.data_ptr(), log.data_ptr(), batch, n_sites, phys, layout, wdim,
+            ctypes.c_float(float(wdim * bond * bond)),
+            ctypes.c_float(float(np.float32(MIN_NORM))), _build.stream_of(cores),
         )
     _build.check(rc, "cn_mpo_env")
     mpo_env.launches += 1
+    if pad:
+        env = env.reshape(batch, wdim, layout, layout)[:, :, :bond, :bond]
+        env = env.reshape(batch, wdim * bond, bond)
     return env, log
 
 

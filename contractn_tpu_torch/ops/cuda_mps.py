@@ -2,11 +2,15 @@
 
 Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_mps.py``
 (``pallas_mps_evaluate`` -> ``_mps_kernel``).  The CUDA source is
-``csrc/mps_chain.cu`` (entry ``cn_mps_evaluate``); its header states what
-bounds the kernel on an H100 (fp32 FMA throughput: the chain does
-``2*B*N*d*D^2`` FLOPs on a few MB of cores and inputs) and what the design
-does about it (one CTA per 32-row batch tile loops over every site, the
-carry stays on chip, cores are read in place from L2).
+``csrc/mps_chain_tc.cu`` (entry ``cn_mps_evaluate``); its header states the
+bound on an H100 (the chain's ``2*B*N*d*D^2`` GEMM FLOPs run as 3xTF32 on the
+tensor cores for fp32 cores, one bf16 pass for bf16) and the design: one CTA
+per 32-row batch tile walks every site with the fp32 carry on chip, each
+site's GEMM on ``mma.sync``, the next cores fetched by the TMA
+(``cp.async.bulk``, one copy a site) into a ring of shared-memory stages
+while the current site computes.  For that single copy the wrapper lays the
+cores out once as ``(N, d, DP, DP + 8)``, zero-padded (DP = 32, 64 or 128),
+which is the shared-memory layout the kernel reads without bank conflicts.
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 
@@ -34,12 +38,6 @@ from . import _build
 from .stabilize import MIN_NORM
 
 _SIGNATURES = {
-    "cn_mps_evaluate": [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p,
-    ],
     "cn_mps_epilogue": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -48,12 +46,28 @@ _SIGNATURES = {
     ],
 }
 
+_TC_SIGNATURES = {
+    "cn_mps_evaluate": [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p,
+    ],
+    "cn_mps_core_rows": [ctypes.c_int],
+    "cn_mps_evaluate_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+}
+
 MAX_BOND = 128  # widest bond the chain kernels take
 
 
 def library():
-    """The built ``csrc/mps_chain.cu`` library (shared with cuda_epilogue)."""
+    """The built ``csrc/mps_chain.cu`` library (kernel #2, cuda_epilogue)."""
     return _build.load("mps_chain", _SIGNATURES)
+
+
+def tc_library():
+    """The built ``csrc/mps_chain_tc.cu`` library (kernel #1)."""
+    return _build.load("mps_chain_tc", _TC_SIGNATURES)
 
 
 def f32(value):
@@ -78,8 +92,12 @@ def check_chain_args(cores, left, right, x):
     return n_sites, phys, bond, x.shape[0]
 
 
-def check_cuda_chain(cores, tensors, bond, phys):
-    """Device, dtype, layout and size checks before a CUDA launch."""
+def check_cuda_chain(cores, tensors, bond, phys, smem=None):
+    """Device, dtype, layout and size checks before a CUDA launch.
+
+    ``smem`` is the kernel's shared memory per block in bytes (negative when
+    no layout fits), defaulting to that of the FMA chain kernel (#2).
+    """
     if cores.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(
             f"CUDA MPS kernels take float32 or bfloat16 cores, got {cores.dtype}"
@@ -91,8 +109,9 @@ def check_cuda_chain(cores, tensors, bond, phys):
         raise ValueError("cores must be contiguous (N, d, D, D)")
     if bond > MAX_BOND:
         raise ValueError(f"CUDA MPS kernels take bond <= {MAX_BOND}, got {bond}")
-    smem = 4 * (phys * bond * bond + 32 * (bond + 1) + 32 * phys)
-    if smem > _build.SMEM_LIMIT:
+    if smem is None:
+        smem = 4 * (phys * bond * bond + 32 * (bond + 1) + 32 * phys)
+    if smem < 0 or smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"d={phys}, D={bond} needs {smem} bytes of shared memory per block "
             f"(limit {_build.SMEM_LIMIT})"
@@ -152,18 +171,22 @@ def cuda_mps_evaluate(cores, left, right, x):
         return mps_evaluate_plain(cores, left, right, x)
     if cores.device.type != "cuda":
         raise ValueError(f"unsupported device {cores.device}")
-    check_cuda_chain(cores, (left, right, x), bond, phys)
+    lib = tc_library()
+    bf16 = int(cores.dtype == torch.bfloat16)
+    check_cuda_chain(cores, (left, right, x), bond, phys,
+                     smem=lib.cn_mps_evaluate_smem(bf16, phys, bond))
     xf = f32_input(x)
+    rows = lib.cn_mps_core_rows(bond)
+    cores_k = torch.nn.functional.pad(cores, (0, rows + 8 - bond, 0, rows - bond))
     left_f = left.to(torch.float32).contiguous()
     right_f = right.to(torch.float32).contiguous()
     amp = torch.empty(batch, dtype=torch.float32, device=cores.device)
     log = torch.empty(batch, dtype=torch.float32, device=cores.device)
-    lib = library()
     with torch.cuda.device(cores.device):
         rc = lib.cn_mps_evaluate(
-            cores.data_ptr(), int(cores.dtype == torch.bfloat16), xf.data_ptr(),
-            left_f.data_ptr(), right_f.data_ptr(), amp.data_ptr(), log.data_ptr(),
-            n_sites, phys, bond, batch, f32(MIN_NORM / bond), f32(MIN_NORM),
+            cores_k.data_ptr(), bf16, xf.data_ptr(), left_f.data_ptr(),
+            right_f.data_ptr(), amp.data_ptr(), log.data_ptr(), n_sites, phys,
+            bond, batch, f32(MIN_NORM / bond), f32(MIN_NORM),
             _build.stream_of(cores),
         )
     _build.check(rc, "cn_mps_evaluate")

@@ -9,14 +9,11 @@ Tolerances are those of ``chip_smoke.py``: log|psi| within the stated
 tolerance times each sample's condition number.
 """
 
-import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from contractn_tpu_torch.models import tfim_mpo
-from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
-from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
+from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
 
 
 @pytest.fixture
@@ -48,18 +45,23 @@ def test_chain_kernels_match_plain_on_gpu(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_mpo_kernel_matches_plain_on_gpu(cuda_device):
-    shape = {"n_sites": 8, "bond": 32, "batch": 12}
-    mpo, cores, ones = chip_smoke.mpo_inputs(shape, cuda_device, torch.float32, seed=6)
-    wdim, bond = mpo.cores.shape[3], shape["bond"]
-    env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(wdim * bond, bond)
-    weight = torch.einsum("w,i,k->wik", mpo.right, ones, ones).reshape(-1)
-    before = cuda_mpo.mpo_env.launches
-    got = cuda_mpo.mpo_env(cores, env0, mpo_entries(mpo), wdim)
-    assert cuda_mpo.mpo_env.launches == before + 1
-    ref = cuda_mpo.mpo_env_plain(cores, env0, mpo_entries(mpo), wdim)
-    close = [(env.reshape(shape["batch"], -1) @ weight, lg) for env, lg in (got, ref)]
-    close_terms = ref[0].reshape(shape["batch"], -1) * weight
-    chip_smoke.compare_split(close[0], close[1], chip_smoke.TOL_F32, "mpo_env",
-                             chip_smoke.condition(close_terms))
-    assert np.isfinite(got[0].cpu().numpy()).all()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_kernel_pads_an_unaligned_bond_on_gpu(cuda_device, dtype):
+    # D = 20 fills neither a 32-wide tile nor a 16-byte row of bf16: the
+    # wrapper's zero-padded layout carries both
+    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
+    shape = {"n_sites": 9, "phys": 2, "bond": 20, "batch": 33}
+    cores, left, right, x = chip_smoke.mps_inputs(shape, cuda_device, dtype, seed=7)
+    chip_smoke.compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
+                             cuda_mps.mps_evaluate_plain(cores, left, right, x),
+                             tol, "mps_evaluate D=20",
+                             chip_smoke.mps_condition(cores, left, right, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bond", [32, 48, 20])
+def test_mpo_kernel_matches_plain_on_gpu(cuda_device, dtype, bond):
+    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
+    shape = {"n_sites": 8, "bond": bond, "batch": 12}
+    chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol, f"mpo_env D={bond}", seed=6)
