@@ -241,10 +241,10 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
     float safe[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float* pr = red_s + rloc[h] * WPM;
-      float total = pr[0];
+      const float* parts = red_s + rloc[h] * WPM;
+      float total = parts[0];
 #pragma unroll
-      for (int w = 1; w < WPM; ++w) total += pr[w];
+      for (int w = 1; w < WPM; ++w) total += parts[w];
       const float mean = __fdiv_rn(total, (float)bond);
       safe[h] = mean > step_thr ? mean : 1.f;
       log_acc[h] += logf(safe[h]);
@@ -281,10 +281,10 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
     for (int h = 0; h < 2; ++h) {
       const int b = row0 + rloc[h];
       if (b >= batch) continue;
-      const float* pr = red_s + rloc[h] * WPM;
-      float s = pr[0];
+      const float* parts = red_s + rloc[h] * WPM;
+      float s = parts[0];
 #pragma unroll
-      for (int w = 1; w < WPM; ++w) s += pr[w];
+      for (int w = 1; w < WPM; ++w) s += parts[w];
       const float mag = fabsf(s);
       const float sf = mag > close_thr ? mag : 1.f;
       out_amp[b] = __fdiv_rn(s, sf);
