@@ -11,8 +11,10 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    each kernel's registers, spills and shared memory;
 3. kernels against plain: each hand kernel against its plain torch version
    on the card, float32 and bfloat16, at small shapes whose bonds do not
-   fill the kernels' tiles (MPS D 40, MPO D 24 and 48) and at the main-path
-   shapes;
+   fill the kernels' tiles (MPS D 40, MPO D 24 and 48), at the main-path
+   shapes, and at the edges of the kernels' reach: MPS rings shorter than a
+   site (d 3 at D 120, d 20 at D 24) and x read in place (d 900); MPO with
+   W 1, 2, 4, 5 (Heisenberg) and 8, one core buffer where two do not fit;
 4. main path through the user entry points: the three README examples via
    ``TN.contract``, the flagship batched ``MPS.evaluate`` (1000 sites x d 2
    x bond 64 x batch 4096, float32), the carry-returning evaluation at the
@@ -47,6 +49,21 @@ MPO_BENCH = {"n_sites": 50, "bond": 64, "batch": 1000}
 SMALL_MPS = {"n_sites": 37, "phys": 3, "bond": 40, "batch": 70}
 SMALL_MPO = {"n_sites": 7, "bond": 24, "batch": 9}
 RAGGED_MPO = {"n_sites": 6, "bond": 48, "batch": 5}  # not a multiple of 32
+# Edges of the kernels' reach (see the headers of csrc/mps_chain_tc.cu and
+# csrc/mpo_env.cu): each runs a code path the shapes above do not
+REACH_MPS = (
+    {"n_sites": 9, "phys": 3, "bond": 120, "batch": 40},  # fp32 ring of 2 < d
+    {"n_sites": 11, "phys": 20, "bond": 24, "batch": 50},  # ring of 8 < d
+    {"n_sites": 5, "phys": 900, "bond": 4, "batch": 40},  # x read in place
+)
+REACH_MPO = (
+    {"n_sites": 5, "bond": 48, "batch": 16, "mpo": "heisenberg"},  # W 5, fp32 one buffer
+    {"n_sites": 5, "bond": 24, "batch": 16, "mpo": "heisenberg"},  # W 5 at D <= 32
+    {"n_sites": 5, "bond": 64, "batch": 16, "mpo": (2, 4)},  # W 4 at D 64
+    {"n_sites": 5, "bond": 64, "batch": 16, "mpo": (2, 2)},
+    {"n_sites": 5, "bond": 64, "batch": 16, "mpo": (3, 1)},
+    {"n_sites": 5, "bond": 40, "batch": 16, "mpo": (1, 8)},  # W 8
+)
 
 # Agreement of log|psi| between a kernel and its plain version, scaled by
 # each sample's condition number (see mps_condition, condition, PERF.md)
@@ -197,15 +214,37 @@ def mps_inputs(shape, device, dtype, seed):
 
 
 def mpo_inputs(shape, device, dtype, seed):
-    from contractn_tpu_torch.models import tfim_mpo
+    """A uniform MPO, per-sample MPS cores and a ones boundary.
+
+    ``shape["mpo"]`` names the MPO: ``"tfim"`` (W 3, the default),
+    ``"heisenberg"`` (W 5), or ``(d, W)`` for a random uniform one that is
+    diagonal in the physical index with nonnegative entries and boundaries,
+    so that the environments stay positive semidefinite and their close is
+    well conditioned enough to compare at bf16 precision.
+    """
+    from contractn_tpu_torch.models import MPO, heisenberg_mpo, tfim_mpo
 
     gen = torch.Generator(device=device).manual_seed(seed)
     n, bond, batch = shape["n_sites"], shape["bond"], shape["batch"]
-    scale = 1.0 / math.sqrt(2 * bond)
-    cores = (scale * torch.randn((batch, n, 2, bond, bond), generator=gen,
+    kind = shape.get("mpo", "tfim")
+    d = kind[0] if isinstance(kind, tuple) else 2
+    scale = 1.0 / math.sqrt(d * bond)
+    cores = (scale * torch.randn((batch, n, d, bond, bond), generator=gen,
                                  device=device)).to(dtype)
     ones = torch.ones(bond, device=device)
-    return tfim_mpo(n, dtype=torch.float32, device=device), cores, ones
+    if kind == "tfim":
+        mpo = tfim_mpo(n, dtype=torch.float32, device=device)
+    elif kind == "heisenberg":
+        mpo = heisenberg_mpo(n, dtype=torch.float32, device=device)
+    else:
+        wdim = kind[1]
+        core = torch.zeros((d, d, wdim, wdim), device=device)
+        for p in range(d):
+            core[p, p] = torch.randn((wdim, wdim), generator=gen, device=device).abs()
+        ends = 0.5 + torch.rand((2, wdim), generator=gen, device=device)
+        mpo = MPO((core / math.sqrt(wdim)).expand(n, -1, -1, -1, -1).contiguous(),
+                  ends[0], ends[1])
+    return mpo, cores, ones
 
 
 # ---------------------------------------------------------------- phases
@@ -312,7 +351,17 @@ def phase_kernels_vs_plain(device):
                                 cond)
             if tag == "main" and acc == torch.float32:
                 errors["mps_evaluate_epilogue"] = err
-    for tag, shape in (("small", SMALL_MPO), ("ragged", RAGGED_MPO), ("main", MPO_BENCH)):
+    for shape in REACH_MPS:
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            cores, left, right, x = mps_inputs(shape, device, dtype, seed=8)
+            compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
+                          cuda_mps.mps_evaluate_plain(cores, left, right, x), tol,
+                          f"#1 mps_evaluate d={shape['phys']} D={shape['bond']} {dtype}",
+                          mps_condition(cores, left, right, x))
+    mpo_shapes = [(tag, shape) for tag, shape in
+                  (("small", SMALL_MPO), ("ragged", RAGGED_MPO), ("main", MPO_BENCH))]
+    mpo_shapes += [(f"{s['mpo']} D={s['bond']}", s) for s in REACH_MPO]
+    for tag, shape in mpo_shapes:
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             err = compare_mpo_env(shape, device, dtype, tol, f"#3 mpo_env {tag} {dtype}")
             if tag == "main" and dtype == torch.float32:
@@ -481,6 +530,11 @@ def phase_times(device):
         cuda_time(lambda: cuda_mps.mps_evaluate_plain(cores, left, right, x), reps=5),
         *bound_ms(gemm, elem, in_bytes + 8 * batch),
     )
+    lib = cuda_mps.tc_library()
+    rows, ld = lib.cn_mps_core_rows(bond), lib.cn_mps_core_ld(bond)
+    pad = cuda_time(lambda: torch.nn.functional.pad(cores, (0, ld - bond, 0, rows - bond)))
+    log(f"  mps_evaluate wrapper: the (N, d, {rows}, {ld}) layout copy of the cores "
+        f"takes {pad:.3f} ms of the call")
     out["mps_evaluate_epilogue"] = (
         cuda_time(lambda: cuda_epilogue.epilogue_chain(cores, left, x)),
         cuda_time(lambda: cuda_epilogue.epilogue_chain_plain(cores, left, x), reps=5),

@@ -14,20 +14,20 @@
 // stream from HBM once.  bf16 cores take one bf16 pass (989 TFLOP/s).
 //
 // Design:
-//   * A persistent grid (one CTA of 16 warps per SM at D = 64; 8 warps with
-//     255 registers each measured slower) walks the samples; a CTA
-//     owns one sample at a time and loops over all N sites, the fp32
-//     environment E (W*D, D) resident in shared memory.  Sample boundaries
-//     do not stall the pipeline below.  (1000 samples on 132 SMs still end
-//     in a 58%-full last round: a sample is the unit of work.)
+//   * One CTA of 16 warps per sample (8 warps with 255 registers each
+//     measured slower) loops over all N sites, the fp32 environment E
+//     (W*D, D) resident in shared memory.  At D = 64 one CTA fills an SM;
+//     1000 samples on 132 SMs end in a 58%-full last wave.
 //   * Per site, on mma.sync (3xTF32 m16n8k8 for fp32 cores, m16n8k16 bf16
 //     for bf16; see tc_common.cuh):
 //       1. ket GEMMs  t[e*W+w] = E_w A_e, (W*D x D)(D x d*D) = 192x64 . 64x128:
-//          at D > 32 each of 16 warps owns one (e, 16-row, 32-column) tile
-//          and walks all W environment blocks (W is a template parameter),
-//          so each B fragment is split once for W products, one accumulator
-//          per product (the 3 TF32 passes into it); at D <= 32 the warps take
-//          16x32 tiles of the d*W blocks in turn.  Results go to t;
+//          a warp takes strips of one (e, 16-row, 32-column) tile over NW
+//          environment blocks w, so each split B fragment serves NW
+//          products, one accumulator each (the 3 TF32 passes into it).
+//          Where E and t do not fit side by side (W = 4 or 5 at D = 64), E
+//          lives over the rooms of the last e's products, and those strips
+//          (at most one a warp) stay in registers until every warp has read
+//          E, behind one more barrier;
 //       2. channel mix in place: t2[v*d+p] = sum_q M[v*d+p][q] t[q], one
 //          thread per (i, l) holding all d*W blocks in registers; the result
 //          is rounded to the core type (the Pallas kernel's cast before the
@@ -38,30 +38,35 @@
 //          alias them;
 //       3. bra GEMMs  out[v] = A^T t2[v], (D x d*D)(d*D x D) per v, the A
 //          operand read transposed straight from the core buffer: each warp
-//          owns one fixed 16x16 (j, l) tile in every v it serves (one
-//          accumulator each, the 3 TF32 passes into it; the count is a
-//          template parameter), so one A fragment feeds all of them, and
-//          keeps them in registers;
+//          owns one fixed 16x16 (j, l) tile in every v it serves (NB of them
+//          at most, one accumulator each), so one A fragment feeds all of
+//          them, and keeps them in registers;
 //       4. mean |out| over the whole environment: warp shuffles, one partial
 //          a warp in shared memory, every thread adds the 16 in a fixed
 //          order; guard mean > MIN_NORM, E = out * (1/safe) written from the
 //          registers (to env_out at the last site), log += log(safe).
 //     The environment is cast to the core type as the ket's A operand, as in
 //     the Pallas kernel; every GEMM accumulates in fp32.
-//     All K loops run the padded width (32 or 64) at compile time, unrolled
-//     by 2 (fully unrolled they spill at the 128 registers a thread has).
-//   * Async copies: the next (sample, site)'s core (d, D, D), 32 KB at fp32,
-//     lands in the second of two shared buffers by the TMA (cp.async.bulk,
-//     one row per copy, spread over the threads, completion on an mbarrier)
-//     while this site computes.  (The cores are (B, N, d, D, D), 1.6 GB at
-//     the bench shape: the padded copy that lets kernel #1 fetch a whole
-//     core in one request would move 3.5 GB more through HBM a call.)
-//   * Shared memory (fp32, W = 3, D = 64, d = 2): E 52,224 B (rows padded to
-//     D + 4 floats: it is read in the A pattern) + t 98,304 B (unpadded,
-//     XOR-swizzled, tc_common.cuh swz: read in the B pattern) + 2 core
-//     buffers 73,728 B (rows padded to D + 8) + partials 64 B + barriers 16 B
-//     = 224,336 B of the 232,448 B a block may opt in to.  Rows and columns
-//     past D (D < 32 or 64, the tiles' sizes) stay zero.
+//     All K loops run the padded width DP (32 or 64) at compile time,
+//     unrolled by 2 (fully unrolled they spill at the 128 registers a thread
+//     has).  NW and NB are template parameters picked from W (config_for).
+//   * Async copies: the next site's core (d, D, D), 32 KB at fp32, lands in
+//     the second of two shared buffers by the TMA (cp.async.bulk, one row per
+//     copy, spread over the threads, completion on an mbarrier) while this
+//     site computes.  Where two buffers do not fit even with E over t (large
+//     d*W), one buffer is refilled after the site's last read of it.  (The cores are
+//     (B, N, d, D, D), 1.6 GB at the bench shape: the padded copy that lets
+//     kernel #1 fetch a block in one request would move 3.5 GB more through
+//     HBM a call.)
+//   * Shared memory (fp32, W = 3, D = 64, d = 2): t 98,304 B (d*W blocks of
+//     64 x 64 fp32, unpadded, XOR-swizzled for the B pattern, tc_common.cuh
+//     swz) + E 52,224 B (rows padded to D + 4 floats for the A pattern) + 2
+//     core buffers 73,728 B (rows padded to D + 8) + partials 64 B +
+//     barriers 16 B = 224,336 B of the 232,448 B a block may opt in to.  E
+//     over t saves all of E but W*D*4 floats of row padding (plan_for).
+//     Rows and columns past D (D < 32 or 64, the tiles' sizes) stay zero.
+//   * Reach: D <= 64, d*W <= 16, W <= 8 at D > 32, and t, E's padding and
+//     one core buffer within the opt-in limit.
 //
 // The operand layout asks for D * sizeof(T) to be a multiple of 16 bytes;
 // the wrapper pads the bond with zeros otherwise (ops/cuda_mpo.py).
@@ -76,7 +81,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBraN = 2;     // n8 fragments across a bra tile (16 columns)
 constexpr int kMaxMix = 16;  // d * W
-constexpr int kMaxBra = 4;   // bra tiles a warp keeps in registers
 constexpr int kSmemLimit = 232448;
 
 // Channel mix M[o][q], o = v*d + p, q = e*W + w, zero-padded to 16 x 16
@@ -84,32 +88,65 @@ struct Mix {
   float m[kMaxMix * kMaxMix];
 };
 
-struct Layout {
-  int ld, stage_elems;
-  int env, t, core, red, bar, total;  // byte offsets, total bytes
+struct Plan {
+  int nbuf;    // core buffers: 2 (the next site's copy overlaps this one's compute) or 1
+  bool alias;  // E over the last e's ket products, not beside t
 };
 
+struct Layout {
+  int stage_elems;
+  int env, core, red, bar, total;  // byte offsets (t at 0), total bytes
+};
+
+// t (d*W*dp, dp) fp32 at offset 0; E (W*dp, dp + 4) after it, or (alias)
+// from the start of t's last W blocks, overhanging t by W*dp*4 floats; then
+// nbuf core buffers (d*dp, core_ld(dp)), the partials and two mbarriers
 template <typename T>
-__host__ __device__ Layout make_layout(int phys, int dp, int wdim) {
+__host__ __device__ Layout make_layout(int phys, int dp, int wdim, Plan p) {
   Layout L;
-  const int nq = phys * wdim;
-  L.ld = dp + 4;
+  const int t_bytes = phys * wdim * dp * dp * 4, e_bytes = wdim * dp * (dp + 4) * 4;
   L.stage_elems = phys * dp * core_ld(dp);
-  L.env = 0;
-  L.t = L.env + wdim * dp * L.ld * 4;
-  L.core = L.t + nq * dp * dp * 4;
-  L.red = L.core + 2 * L.stage_elems * (int)sizeof(T);
+  L.env = p.alias ? t_bytes - wdim * dp * dp * 4 : t_bytes;
+  L.core = L.env + e_bytes;
+  L.red = L.core + p.nbuf * L.stage_elems * (int)sizeof(T);
   L.bar = L.red + kWarps * 4;
   L.total = L.bar + 2 * 8;
   return L;
 }
 
-// Bra tiles: a (j, l) tile of 16 x 8*kBraN; a warp serves every v_step-th v
-// with one tile of fixed (j, l), at most kMaxBra of them
-__host__ __device__ constexpr int bra_vstep(int dp) {
-  return kWarps / ((dp / 16) * (dp / (8 * kBraN)));
+// The first layout that fits of: E beside t with two core buffers, E over
+// t with two, E over t with one; nbuf = 0 when none fits
+template <typename T>
+Plan plan_for(int phys, int dp, int wdim) {
+  const Plan order[] = {{2, false}, {2, true}, {1, true}};
+  for (const Plan& p : order)
+    if (make_layout<T>(phys, dp, wdim, p).total <= kSmemLimit) return p;
+  return {0, false};
 }
-__host__ __device__ constexpr int max_wdim(int dp) { return kMaxBra * bra_vstep(dp); }
+
+// Tiling for bond and W: the padded bond DP, the environment blocks a ket
+// strip walks (NW) and the bra tiles a warp keeps (NB); false outside the
+// kernel's reach.  At DP = 32 a v-step of 4 warps' tiles covers one v, so
+// NB = ceil(W / 4) <= 4; at DP = 64 every warp serves every v, NB >= W.
+// The last physical index's ket strips (kTiles * ceil(W / NW) of them) must
+// not outnumber the warps: each warp holds at most one across a barrier.
+struct Config {
+  int dp, nw, nb;
+};
+bool config_for(int bond, int wdim, Config& c) {
+  if (bond <= 32) {
+    c = {32, 4, wdim <= 4 ? 1 : 4};
+    return wdim <= 16;
+  }
+  if (bond > 64 || wdim > 8) return false;
+  if (wdim <= 2)
+    c = {64, 2, 2};
+  else if (wdim <= 4)
+    c = {64, wdim, wdim};
+  else
+    c = {64, wdim <= 6 ? 3 : 4, 8};
+  return true;
+}
 
 // t2 = M t in place at every (i, l), MQ >= d*W
 template <typename T, int MQ, int DP>
@@ -130,37 +167,41 @@ __device__ __forceinline__ void channel_mix(float* t_s, const Mix& mix, int nq) 
   }
 }
 
-template <typename T, int DP, int NBRA>
+template <typename T, int DP, int NW, int NB>
 __global__ void __launch_bounds__(kThreads)
 mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
                const __grid_constant__ Mix mix, float* __restrict__ env_out,
-               float* __restrict__ log_out, int batch, int n_sites, int phys, int bond, int wdim,
-               float count, float thr) {
+               float* __restrict__ log_out, int n_sites, int phys, int bond, int wdim,
+               Plan plan, float count, float thr) {
   using Op = Tc<T>;
   constexpr int KS = Op::kK;
-  constexpr bool kSplit = sizeof(T) == 4;
   constexpr int T16 = DP / 16, T32 = DP / 32;
+  constexpr int kTiles = T16 * T32;  // (16-row, 32-column) tiles of a DP x DP block
   constexpr int TB = DP / (8 * kBraN);
   constexpr int kPerV = T16 * TB;  // bra tiles per v, divides kWarps
+  constexpr int kVStep = kWarps / kPerV;
   constexpr int NKS = DP / KS;
   constexpr int CLD = core_ld(DP);
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout<T>(phys, DP, wdim);
-  float* e_s = reinterpret_cast<float*>(smem + L.env);  // (W*DP, ld), padded rows
-  float* t_s = reinterpret_cast<float*>(smem + L.t);    // (nq*DP, DP), swizzled
-  T* c_s = reinterpret_cast<T*>(smem + L.core);         // 2 x (d*DP, CLD)
+  const Layout L = make_layout<T>(phys, DP, wdim, plan);
+  const int nq = phys * wdim, nbuf = plan.nbuf;
+  float* t_s = reinterpret_cast<float*>(smem);           // (nq*DP, DP), swizzled
+  float* e_s = reinterpret_cast<float*>(smem + L.env);  // E (W*DP, ld)
+  T* c_s = reinterpret_cast<T*>(smem + L.core);  // nbuf x (d*DP, CLD)
   float* red_s = reinterpret_cast<float*>(smem + L.red);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
-  const int ld = L.ld;
+  constexpr int ld = DP + 4;  // E's rows: 4 words mod 32 serve the A pattern
 
   const int warp = threadIdx.x >> 5, lane = lane_id();
   const int g = lane >> 2, t = lane & 3;
-  const int nq = phys * wdim;
+  const int b = blockIdx.x;
   const int dd = bond * bond;
-  const int per_cta = (batch - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int items = per_cta * n_sites;
-  // this warp's bra tile: fixed (j, l) block, v = v0 + r * kWarps / kPerV
+  // ket strips, e-major: (e, chunk of NW blocks w, 16-row tile, 32-column tile)
+  const int spg = kTiles * ((wdim + NW - 1) / NW);
+  const int ns = phys * spg;
+  const int nh = plan.alias ? ns - spg : ns;  // strips from nh on write over E
+  // this warp's bra tile: fixed (j, l) block, v = v0 + r * kVStep
   const int mj = (warp % kPerV) / TB, nl = (warp % kPerV) % TB;
   const int v0 = warp / kPerV;
 
@@ -172,99 +213,89 @@ mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
     mbar_init(&bar[1], 1);
     fence_barrier_init();
   }
+  for (int e = threadIdx.x; e < wdim * dd; e += kThreads) {
+    const int r = e / bond, k = e - r * bond;  // r = w * bond + i
+    e_s[((r / bond) * DP + r % bond) * ld + k] = env0[e];
+  }
   __syncthreads();
 
-  auto sample_of = [&](int it) { return (int)blockIdx.x + (it / n_sites) * (int)gridDim.x; };
-  auto fetch = [&](int it) {
-    if (it < items)
-      stage_core(c_s + (it & 1) * L.stage_elems,
-                 cores + ((size_t)sample_of(it) * n_sites + it % n_sites) * phys * dd, phys, bond,
-                 DP, CLD, &bar[it & 1]);
+  auto fetch = [&](int n) {
+    if (n < n_sites)
+      stage_core(c_s + (n % nbuf) * L.stage_elems, cores + ((size_t)b * n_sites + n) * phys * dd,
+                 phys, bond, DP, CLD, &bar[n % nbuf]);
   };
   fetch(0);
   float log_acc = 0.f;
+  float acc[NW][4][4];
 
-  for (int it = 0; it < items; ++it) {
-    const int n = it % n_sites;
-    const int b = sample_of(it);
-    fetch(it + 1);
-    if (n == 0) {
-      for (int e = threadIdx.x; e < wdim * dd; e += kThreads) {
-        const int r = e / bond, k = e - r * bond;  // r = w * bond + i
-        e_s[((r / bond) * DP + r % bond) * ld + k] = env0[e];
-      }
-      log_acc = 0.f;
-    }
-    mbar_wait(&bar[it & 1], (it >> 1) & 1);
-    __syncthreads();  // this site's core landed; E holds the environment
-    const T* cs = c_s + (it & 1) * L.stage_elems;
-
-    // 1. ket GEMMs
-    if constexpr (DP == 64) {
-      // a warp owns one (e, 16-row, 32-column) tile and walks all W = NBRA
-      // environment blocks, so each B fragment is split once for W products
-      for (int tile = warp; tile < phys * T16 * T32; tile += kWarps) {
-        const int e = tile / (T16 * T32), r = tile % (T16 * T32);
-        const int mi = r / T32, ni = r % T32;
-        const T* B = cs + e * DP * CLD + ni * 32;
-        float acc[NBRA][4][4] = {};
+  // ket strip s into acc: t[e*W + w] = E_w A_e for the strip's blocks w.
+  // Blocks past W (W not a multiple of NW) repeat the last one, so the hot
+  // loop has no branch; store() drops them.
+  auto ket = [&](const T* cs, int s) {
+    const int e = s / spg, r = s % spg;
+    const int w0 = (r / kTiles) * NW, mi = (r % kTiles) / T32, ni = r % T32;
+    const T* B = cs + e * DP * CLD + ni * 32;
+    int ao[NW];  // E_w's row tile, as an offset into e_s
+#pragma unroll
+    for (int w = 0; w < NW; ++w) ao[w] = (min(w0 + w, wdim - 1) * DP + mi * 16) * ld;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[w][nt][c] = 0.f;
 #pragma unroll 2  // full unrolling spills at 128 registers
-        for (int ks = 0; ks < NKS; ++ks) {
-          typename Op::BFrag bf[4];
+    for (int ks = 0; ks < NKS; ++ks) {
+      typename Op::BFrag bf[4];
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            Op::load_b(bf[nt], [&](int rr, int c) { return B[(ks * KS + rr) * CLD + nt * 8 + c]; },
-                       g, t);
+      for (int nt = 0; nt < 4; ++nt)
+        Op::load_b(bf[nt], [&](int rr, int c) { return B[(ks * KS + rr) * CLD + nt * 8 + c]; }, g,
+                   t);
 #pragma unroll
-          for (int w = 0; w < NBRA; ++w) {
-            const float* A = e_s + (w * DP + mi * 16) * ld;
-            typename Op::AFrag af;  // bf16: packing E rounds it, the Pallas cast
-            Op::load_a(af, [&](int rr, int c) { return A[rr * ld + ks * KS + c]; }, g, t);
+      for (int w = 0; w < NW; ++w) {
+        typename Op::AFrag af;  // bf16: packing E rounds it, the Pallas cast
+        Op::load_a(af, [&](int rr, int c) { return e_s[ao[w] + rr * ld + ks * KS + c]; }, g, t);
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) Op::mma(acc[w][nt], af, bf[nt]);
-          }
-        }
-#pragma unroll
-        for (int w = 0; w < NBRA; ++w)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int row = (e * wdim + w) * DP + mi * 16 + g + 8 * (c >> 1);
-              const int col = ni * 32 + nt * 8 + 2 * t + (c & 1);
-              t_s[swz<T>(row, col, DP)] = acc[w][nt][c];
-            }
+        for (int nt = 0; nt < 4; ++nt) Op::mma(acc[w][nt], af, bf[nt]);
       }
-    } else {
-      // 16 x 32 tiles of the d*W blocks in turn
-      for (int tile = warp; tile < nq * T16 * T32; tile += kWarps) {
-        const int q = tile / (T16 * T32), r = tile % (T16 * T32);
-        const int mi = r / T32, ni = r % T32;
-        const int e = q / wdim, w = q % wdim;
-        const float* A = e_s + (w * DP + mi * 16) * ld;
-        const T* B = cs + e * DP * CLD + ni * 32;
-        float big[4][4] = {}, small[4][4] = {};
+    }
+  };
+  auto store = [&](int s) {
+    const int e = s / spg, r = s % spg;
+    const int w0 = (r / kTiles) * NW, mi = (r % kTiles) / T32, ni = r % T32;
 #pragma unroll
-        for (int ks = 0; ks < NKS; ++ks) {
-          typename Op::AFrag af;
-          Op::load_a(af, [&](int rr, int c) { return A[rr * ld + ks * KS + c]; }, g, t);
+    for (int w = 0; w < NW; ++w) {
+      if (w0 + w >= wdim) break;
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            typename Op::BFrag bf;
-            Op::load_b(bf, [&](int rr, int c) { return B[(ks * KS + rr) * CLD + nt * 8 + c]; }, g,
-                       t);
-            Op::mma(big[nt], small[nt], af, bf);
-          }
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = (e * wdim + w0 + w) * DP + mi * 16 + g + 8 * (c >> 1);
+          const int col = ni * 32 + nt * 8 + 2 * t + (c & 1);
+          t_s[swz<T>(row, col, DP)] = acc[w][nt][c];
         }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int row = q * DP + mi * 16 + g + 8 * (c >> 1);
-            const int col = ni * 32 + nt * 8 + 2 * t + (c & 1);
-            t_s[swz<T>(row, col, DP)] = kSplit ? big[nt][c] + small[nt][c] : big[nt][c];
-          }
-      }
+    }
+  };
+
+  for (int n = 0; n < n_sites; ++n) {
+    if (nbuf == 2) fetch(n + 1);
+    mbar_wait(&bar[n % nbuf], (n / nbuf) & 1);
+    __syncthreads();  // this site's core landed; E holds the environment
+    const T* cs = c_s + (n % nbuf) * L.stage_elems;
+
+    // 1. ket GEMMs; with E over t, a warp's strip of the last e is held
+    // until every warp has read E
+    int held = -1;
+    for (int s = warp; s < ns; s += kWarps) {
+      ket(cs, s);
+      if (s < nh)
+        store(s);
+      else
+        held = s;  // at most one a warp, its last
+    }
+    if (plan.alias) {
+      __syncthreads();  // every read of E done
+      if (held >= 0) store(held);
     }
     __syncthreads();
 
@@ -275,24 +306,25 @@ mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
       channel_mix<T, kMaxMix, DP>(t_s, mix, nq);
     __syncthreads();
 
-    // 3. bra GEMMs: this warp's (j, l) tile in every v it serves
-    float keep[NBRA][kBraN][4] = {};
+    // 3. bra GEMMs: this warp's (j, l) tile in every v it serves (v past W
+    // repeats the last one, without a branch in the hot loop, and is dropped)
+    float keep[NB][kBraN][4] = {};
     for (int p = 0; p < phys; ++p) {
       const T* A = cs + p * DP * CLD + mj * 16;  // A^T: row (p, i), column j
+      int bo[NB];  // t2[v], rows (p, i), as an offset into t_s
+#pragma unroll
+      for (int r = 0; r < NB; ++r) bo[r] = (min(v0 + r * kVStep, wdim - 1) * phys + p) * DP * DP;
 #pragma unroll 2
       for (int ks = 0; ks < NKS; ++ks) {
         typename Op::AFrag af;
         Op::load_a(af, [&](int row, int c) { return A[(ks * KS + c) * CLD + row]; }, g, t);
 #pragma unroll
-        for (int r = 0; r < NBRA; ++r) {
-          const int v = v0 + r * bra_vstep(DP);
-          if (bra_vstep(DP) > 1 && v >= wdim) continue;  // W not a multiple of v_step
-          const float* B = t_s + (v * phys + p) * DP * DP;  // t2[v], rows (p, i)
+        for (int r = 0; r < NB; ++r) {
 #pragma unroll
           for (int nt = 0; nt < kBraN; ++nt) {
             typename Op::BFrag bf;
             Op::load_b(bf, [&](int row, int c) {
-              return B[swz<T>(ks * KS + row, nl * 8 * kBraN + nt * 8 + c, DP)];
+              return t_s[bo[r] + swz<T>(ks * KS + row, nl * 8 * kBraN + nt * 8 + c, DP)];
             }, g, t);
             Op::mma(keep[r][nt], af, bf);
           }
@@ -301,17 +333,20 @@ mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
     }
     float part = 0.f;
 #pragma unroll
-    for (int r = 0; r < NBRA; ++r)
+    for (int r = 0; r < NB; ++r) {
+      if (v0 + r * kVStep >= wdim) break;
 #pragma unroll
       for (int nt = 0; nt < kBraN; ++nt)
 #pragma unroll
         for (int c = 0; c < 4; ++c) part += fabsf(keep[r][nt][c]);
+    }
 
     // 4. rescale the whole environment by its mean |.|
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
     if (lane == 0) red_s[warp] = part;
-    __syncthreads();  // partials written; every read of E, t and this core done
+    __syncthreads();  // partials written; every read of t and this core done
+    if (nbuf == 1) fetch(n + 1);
     float total = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += red_s[w];
@@ -322,8 +357,8 @@ mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
     const bool last = n == n_sites - 1;
     float* out = env_out + (size_t)b * wdim * dd;
 #pragma unroll
-    for (int r = 0; r < NBRA; ++r) {
-      const int v = v0 + r * bra_vstep(DP);
+    for (int r = 0; r < NB; ++r) {
+      const int v = v0 + r * kVStep;
       if (v >= wdim) break;
 #pragma unroll
       for (int nt = 0; nt < kBraN; ++nt)
@@ -338,31 +373,22 @@ mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
             out[(v * bond + j) * bond + l] = val;
         }
     }
-    if (last && threadIdx.x == 0) log_out[b] = log_acc;
   }
+  if (threadIdx.x == 0) log_out[b] = log_acc;
 }
 
-template <typename T, int DP, int NBRA>
+template <typename T, int DP, int NW, int NB>
 int launch(const void* cores, const float* env0, const Mix& mix, float* env_out, float* log_out,
            int batch, int n_sites, int phys, int bond, int wdim, float count, float thr,
            cudaStream_t stream) {
-  if (wdim > max_wdim(DP) || (DP == 64 && wdim != NBRA)) return (int)cudaErrorInvalidValue;
-  const int smem = make_layout<T>(phys, DP, wdim).total;
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  auto kernel = mpo_env_kernel<T, DP, NBRA>;
+  const Plan plan = plan_for<T>(phys, DP, wdim);
+  if (plan.nbuf == 0) return (int)cudaErrorInvalidValue;
+  const int smem = make_layout<T>(phys, DP, wdim, plan).total;
+  auto kernel = mpo_env_kernel<T, DP, NW, NB>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  const int slots = sms * (per_sm > 0 ? per_sm : 1);
-  kernel<<<batch < slots ? batch : slots, kThreads, smem, stream>>>(
-      static_cast<const T*>(cores), env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
-      count, thr);
+  kernel<<<batch, kThreads, smem, stream>>>(static_cast<const T*>(cores), env0, mix, env_out,
+                                            log_out, n_sites, phys, bond, wdim, plan, count, thr);
   return (int)cudaGetLastError();
 }
 
@@ -370,22 +396,20 @@ template <typename T>
 int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_out,
              float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float count,
              float thr, cudaStream_t stream) {
-  if (phys * wdim > kMaxMix || (bond * (int)sizeof(T)) % 16 != 0) return (int)cudaErrorInvalidValue;
-#define CN_LAUNCH(DP, NBRA)                                                                    \
-  return launch<T, DP, NBRA>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim, \
-                             count, thr, stream)
-  if (bond <= 32) {
-    if (wdim <= bra_vstep(32)) CN_LAUNCH(32, 1);
-    CN_LAUNCH(32, kMaxBra);
-  }
-  if (bond <= 64) {
-    switch (wdim) {
-      case 1: CN_LAUNCH(64, 1);
-      case 2: CN_LAUNCH(64, 2);
-      case 3: CN_LAUNCH(64, 3);
-      default: CN_LAUNCH(64, kMaxBra);
-    }
-  }
+  Config c;
+  if (phys * wdim > kMaxMix || (bond * (int)sizeof(T)) % 16 != 0 || !config_for(bond, wdim, c))
+    return (int)cudaErrorInvalidValue;
+#define CN_LAUNCH(DP, NW, NB)                                                                 \
+  if (c.dp == DP && c.nw == NW && c.nb == NB)                                                 \
+  return launch<T, DP, NW, NB>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, \
+                               wdim, count, thr, stream)
+  CN_LAUNCH(32, 4, 1);
+  CN_LAUNCH(32, 4, 4);
+  CN_LAUNCH(64, 2, 2);
+  CN_LAUNCH(64, 3, 3);
+  CN_LAUNCH(64, 4, 4);
+  CN_LAUNCH(64, 3, 8);
+  CN_LAUNCH(64, 4, 8);
 #undef CN_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -412,14 +436,17 @@ int cn_mpo_env(const void* cores, int cores_bf16, const float* env0, const float
                          count, thr, s);
 }
 
-// Dynamic shared memory of one CTA for these operands (bytes); -1 when the
-// bond exceeds 64 or W exceeds what the bra tiles a warp keeps can serve.
+// Dynamic shared memory of one CTA for these operands (bytes), or -1 outside
+// the kernel's reach (D > 64, d*W > 16, W > 8 at D > 32, or no layout that
+// fits the per-block limit).
 int cn_mpo_env_smem(int cores_bf16, int phys, int bond, int wdim) {
-  if (bond > 64) return -1;
-  const int dp = bond <= 32 ? 32 : 64;
-  if (wdim > max_wdim(dp)) return -1;
-  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, dp, wdim).total
-                    : make_layout<float>(phys, dp, wdim).total;
+  Config c;
+  if (phys * wdim > kMaxMix || !config_for(bond, wdim, c)) return -1;
+  const Plan p = cores_bf16 ? plan_for<__nv_bfloat16>(phys, c.dp, wdim)
+                            : plan_for<float>(phys, c.dp, wdim);
+  if (p.nbuf == 0) return -1;
+  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, c.dp, wdim, p).total
+                    : make_layout<float>(phys, c.dp, wdim, p).total;
 }
 
 }  // extern "C"

@@ -35,22 +35,29 @@
 //     carry is written back as the next site's A operand (rounded to the core
 //     type, as the Pallas kernel casts it before each dot).  Two barriers a
 //     site.
-//   * Async core pipeline: site n + S - 1's core is fetched by the TMA (one
-//     cp.async.bulk of the whole core, started by one thread, completion on
-//     one mbarrier per stage) into one of S stages of shared memory while
-//     site n computes (S = 4 where it fits: 36 KB a stage at fp32, d = 2,
-//     D = 64).  No thread spends instruction slots or registers on the core that
-//     every CTA reads from L2 at every site (per-row copies, or 16-byte
-//     cp.async by every thread, measured slower).  For that single copy the
-//     wrapper lays the cores out once as (N, d, DP, DP + 8), zero-padded:
-//     DP = 32, 64 or 128 rows, and rows of DP + 8 elements, a stride of 8
-//     words mod 32 that keeps the B fragment reads free of bank conflicts.
-//     The carry's rows are padded to DP + 4 floats for the A reads.
-//   * x is staged kXSites sites at a time: each row's x[b, n0:n0+16, :] is
-//     contiguous, fetched by 4-byte cp.async (one commit group a site) and
-//     double-buffered.
-//   * Shared memory at fp32, d = 2, D = 64: 4 core stages 147,456 B + carry
-//     8,704 B + x 8,192 B + partials 512 B + barriers 32 B = 164,896 B.
+//   * Async core pipeline: the cores stream through a ring of up to
+//     kMaxBlocks blocks -- a block is one physical index of one site,
+//     (DP, DP + 8) -- fetched by the TMA (cp.async.bulk, started by one
+//     thread, completion on the slot's mbarrier).  Where the ring holds
+//     whole sites, a slot is a site (one copy, one wait before the k loop);
+//     the slots a site frees are refilled right after its reduction barrier,
+//     so at d = 2 the ring runs 3 sites ahead.  A ring shorter than one site
+//     (large d, or d = 3 at D > 64 in fp32) takes one block a slot and
+//     refills each slot inside the site, behind one more barrier.  No
+//     thread spends instruction slots or registers on the core that every CTA
+//     reads from L2 at every site (per-row copies, or 16-byte cp.async by
+//     every thread, measured slower).  For that single copy the wrapper lays
+//     the cores out as (N, d, DP, DP + 8), zero-padded: DP = 32, 64 or 128
+//     rows (cn_mps_core_rows) of DP + 8 elements (cn_mps_core_ld), a stride
+//     of 8 words mod 32 that keeps the B fragment reads free of bank
+//     conflicts.  The carry's rows are padded to DP + 4 floats for the A
+//     reads.
+//   * x is staged nx <= 16 sites at a time: each row's x[b, n0:n0+nx, :] is
+//     contiguous, fetched by 4-byte cp.async (one commit group a block of
+//     sites) and double-buffered.  nx shrinks for large d so that the ring
+//     keeps two slots; past that (d in the hundreds) x is read in place.
+//   * Shared memory at fp32, d = 2, D = 64: 8 ring slots 147,456 B + carry
+//     8,704 B + x 8,192 B + partials 512 B + barriers 64 B = 164,928 B.
 //
 // The wrapper (ops/cuda_mps.py) makes that layout; nothing else needs D to
 // be aligned.
@@ -62,46 +69,74 @@ namespace {
 using namespace cn;
 
 constexpr int kRows = 32;
-constexpr int kXSites = 16;
-constexpr int kMaxStages = 4;
+constexpr int kMaxXSites = 16;
+constexpr int kMaxBlocks = 8;
 constexpr int kSmemLimit = 232448;
 
-constexpr int kWPM = 4;                // warps per m16 row tile
+constexpr int kWPM = 4;                  // warps per m16 row tile
 constexpr int kThreads = 2 * kWPM * 32;  // two row tiles
 
+// A ring slot holds one block (DP, core_ld(DP)) of a core: one physical
+// index of one site.  x is staged nx sites at a time, double-buffered, or
+// read from global memory where even one site's rows do not fit (nx = 0).
 struct Layout {
-  int v_ld, x_ld, stage_elems;
+  int v_ld, x_ld, block_elems;
   int core, v, x, red, bar, total;  // byte offsets, total bytes
 };
 
 template <typename T>
-__host__ __device__ Layout make_layout(int phys, int dp, int stages) {
+__host__ __device__ Layout make_layout(int phys, int dp, int blocks, int nx) {
   Layout L;
   L.v_ld = dp + 4;
-  L.x_ld = kXSites * phys;
-  L.stage_elems = phys * dp * core_ld(dp);
+  L.x_ld = nx * phys;
+  L.block_elems = dp * core_ld(dp);
   L.core = 0;
-  L.v = stages * L.stage_elems * (int)sizeof(T);
+  L.v = blocks * L.block_elems * (int)sizeof(T);
   L.x = L.v + kRows * L.v_ld * 4;
   L.red = L.x + ((2 * kRows * L.x_ld * 4 + 15) / 16) * 16;
   L.bar = L.red + kRows * kWPM * 4;
-  L.total = L.bar + kMaxStages * 8;
+  L.total = L.bar + kMaxBlocks * 8;
   return L;
 }
 
+struct Plan {
+  int blocks, nx;
+  bool whole;  // whole sites in the ring and x staged: the kernel's fast path
+};
+
+// The deepest ring (at most kMaxBlocks) that fits beside the widest x
+// staging that still leaves two slots; one slot with x read in place as the
+// last resort.  A ring that holds a site is cut to whole sites.  blocks = 0
+// when nothing fits.
 template <typename T>
-int stages_for(int phys, int dp) {
-  for (int s = kMaxStages; s >= 1; --s)
-    if (make_layout<T>(phys, dp, s).total <= kSmemLimit) return s;
-  return 0;
+Plan plan_for(int phys, int dp) {
+  auto deepest = [&](int nx) {
+    for (int s = kMaxBlocks; s >= 1; --s)
+      if (make_layout<T>(phys, dp, s, nx).total <= kSmemLimit) return s;
+    return 0;
+  };
+  Plan p = {deepest(0), 0, false};
+  for (int nx = kMaxXSites; nx >= 1; nx /= 2)
+    if (deepest(nx) >= 2) {
+      p = {deepest(nx), nx, false};
+      break;
+    }
+  p.whole = p.nx > 0 && p.blocks >= phys;
+  if (p.whole) p.blocks = p.blocks / phys * phys;
+  return p;
 }
 
-template <typename T, int DP>
+// kWhole: the ring holds whole sites (blocks >= d, rounded down to a multiple
+// of d) and x is staged.  Then a ring unit is a site -- one TMA copy, one
+// mbarrier, waited for before the k loop, whose loop has no branch, so ptxas
+// interleaves two physical indices' MMA chains.  Otherwise a unit is one
+// block, waited for (and its slot refilled) inside the loop.
+template <typename T, int DP, bool kWhole>
 __global__ void __launch_bounds__(kThreads)
 mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
               const float* __restrict__ left, const float* __restrict__ right,
               float* __restrict__ out_amp, float* __restrict__ out_log, int n_sites, int phys,
-              int bond, int batch, int stages, float step_thr, float close_thr) {
+              int bond, int batch, int blocks, int nx, float step_thr, float close_thr) {
   using Op = Tc<T>;
   constexpr int WPM = kWPM;
   constexpr int NT = DP / (8 * WPM);  // n8 tiles per warp and physical index
@@ -112,7 +147,7 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
   constexpr bool kCacheA = NKS * sizeof(typename Op::AFrag) <= 64 * 4;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout<T>(phys, DP, stages);
+  const Layout L = make_layout<T>(phys, DP, blocks, nx);
   T* core_s = reinterpret_cast<T*>(smem + L.core);
   float* v_s = reinterpret_cast<float*>(smem + L.v);
   float* x_s = reinterpret_cast<float*>(smem + L.x);
@@ -124,39 +159,45 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
   const int mt = warp / WPM, ng = warp % WPM;
   const int row0 = blockIdx.x * kRows;
   const int jbase = ng * (DP / WPM);
-  const uint32_t core_bytes = L.stage_elems * sizeof(T);
+  const int per = kWhole ? phys : 1;  // blocks per ring unit
+  const int slots = blocks / per;
+  const int units = n_sites * phys / per;  // unit u: blocks u * per .. u * per + per - 1
+  const int unit_elems = per * L.block_elems;
 
   zero_shared(reinterpret_cast<float*>(smem), L.total / 4);
   fence_proxy_async();
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(&bar[s], 1);
+    for (int s = 0; s < slots; ++s) mbar_init(&bar[s], 1);
     fence_barrier_init();
   }
   __syncthreads();
 
-  // start the copies of site s: its core (one TMA copy) and, every kXSites
-  // sites, the x block it opens (cp.async, one commit group a site)
-  auto fetch = [&](int s) {
+  // unit u into ring slot u % slots: one TMA copy, started by one thread
+  auto issue = [&](int u) {
+    if (threadIdx.x == 0 && u < units) {
+      const int slot = u % slots;
+      const uint32_t bytes = unit_elems * sizeof(T);
+      mbar_expect_tx(&bar[slot], bytes);
+      bulk_copy(core_s + slot * unit_elems, cores + (size_t)u * unit_elems, bytes, &bar[slot]);
+    }
+  };
+  // x[b, s:s+nx, :] of every row into buffer (s / nx) & 1 (cp.async, one group)
+  auto fetch_x = [&](int s) {
     if (s < n_sites) {
-      if (threadIdx.x == 0) {
-        mbar_expect_tx(&bar[s % stages], core_bytes);
-        bulk_copy(core_s + (s % stages) * L.stage_elems, cores + (size_t)s * L.stage_elems,
-                  core_bytes, &bar[s % stages]);
-      }
-      if (s % kXSites == 0) {
-        const int cnt = min(kXSites, n_sites - s) * phys;
-        float* xd = x_s + ((s / kXSites) & 1) * kRows * L.x_ld;
-        for (int e = threadIdx.x; e < kRows * cnt; e += kThreads) {
-          const int r = e / cnt, i = e - r * cnt;
-          if (row0 + r < batch)
-            cp_async4(xd + r * L.x_ld + i, x + ((size_t)(row0 + r) * n_sites + s) * phys + i);
-        }
+      const int cnt = min(nx, n_sites - s) * phys;
+      float* xd = x_s + ((s / nx) & 1) * kRows * L.x_ld;
+      for (int e = threadIdx.x; e < kRows * cnt; e += kThreads) {
+        const int r = e / cnt, i = e - r * cnt;
+        if (row0 + r < batch)
+          cp_async4(xd + r * L.x_ld + i, x + ((size_t)(row0 + r) * n_sites + s) * phys + i);
       }
     }
     cp_async_commit();
   };
-  for (int s = 0; s < stages - 1; ++s) fetch(s);
+  for (int u = 0; u < slots; ++u) issue(u);
+  int next = slots;  // the next unit to issue (the same count in every thread)
+  if (nx) fetch_x(0);
 
   // carry: fp32 in registers at this thread's C positions, the operand copy
   // (rounded to T) in v_s for every row
@@ -176,12 +217,20 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
   const int rloc[2] = {mt * 16 + g, mt * 16 + g + 8};
 
   for (int n = 0; n < n_sites; ++n) {
-    fetch(n + stages - 1);
-    cp_async_wait(stages - 1);
-    mbar_wait(&bar[n % stages], (n / stages) & 1);
-    __syncthreads();  // A: site n's core and x landed; v_s holds the carry
-    const T* cs = core_s + (n % stages) * L.stage_elems;
-    const float* xs = x_s + ((n / kXSites) & 1) * kRows * L.x_ld + (n % kXSites) * phys;
+    if (nx && n % nx == 0) {
+      fetch_x(n + nx);  // into the buffer sites n - nx .. n - 1 used
+      cp_async_wait(1);
+    }
+    if constexpr (kWhole) mbar_wait(&bar[n % slots], (n / slots) & 1);
+    __syncthreads();  // A: this site's x (and, if kWhole, its blocks) landed; v_s holds the carry
+    // this thread's two rows of x at site n: offsets into x_s (staged) or x
+    int xo[2];
+    size_t xg[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      xo[h] = nx ? ((n / nx) & 1) * kRows * L.x_ld + rloc[h] * L.x_ld + (n % nx) * phys : 0;
+      xg[h] = ((size_t)min(row0 + rloc[h], batch - 1) * n_sites + n) * phys;
+    }
 
     // the carry's A fragments: loaded once a site and kept across the k loop
     // while they fit in 64 registers (D <= 64), else reloaded per k
@@ -198,8 +247,15 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
     float vn[NT][4];
 #pragma unroll 2  // two physical indices' MMA chains interleave
     for (int k = 0; k < phys; ++k) {
+      const T* bk;
+      if constexpr (kWhole) {
+        bk = core_s + (n % slots) * unit_elems + k * L.block_elems + jbase;
+      } else {
+        const int j = n * phys + k;
+        mbar_wait(&bar[j % slots], (j / slots) & 1);
+        bk = core_s + (j % slots) * unit_elems + jbase;
+      }
       float big[2][NT][4] = {}, small[2][NT][4] = {};
-      const T* bk = cs + k * DP * CLD + jbase;
 #pragma unroll
       for (int ks = 0; ks < NKS; ++ks) {
         typename Op::AFrag a_now;
@@ -219,9 +275,18 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
         for (int e = 0; e < 4; ++e) {
           float u = big[0][c][e] + big[1][c][e];
           if (kSplit) u += small[0][c][e] + small[1][c][e];
-          const float p = __fmul_rn(u, xs[rloc[e >> 1] * L.x_ld + k]);
+          const float xv = kWhole || nx ? x_s[xo[e >> 1] + k] : x[xg[e >> 1] + k];
+          const float p = __fmul_rn(u, xv);
           vn[c][e] = k == 0 ? p : __fadd_rn(vn[c][e], p);
         }
+      // a ring shorter than one site: refill block j's slot before this
+      // site needs block j + blocks
+      if constexpr (!kWhole) {
+        if (k + slots < phys) {
+          __syncthreads();  // every read of block j done
+          issue(next++);
+        }
+      }
     }
 
     // per-row L1 partials: quad shuffles, then one slot per (row, warp)
@@ -236,16 +301,18 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
       part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
       if (t == 0) red_s[rloc[h] * WPM + ng] = part[h];
     }
-    __syncthreads();  // B: partials written; every read of v_s and cs done
+    __syncthreads();  // B: partials written; every read of v_s and this site's blocks done
+    // refill the slots this site freed
+    for (; next < (n + 1) * phys / per + slots; ++next) issue(next);
 
     float safe[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float* parts = red_s + rloc[h] * WPM;
-      float total = parts[0];
+      float total_h = parts[0];
 #pragma unroll
-      for (int w = 1; w < WPM; ++w) total += parts[w];
-      const float mean = __fdiv_rn(total, (float)bond);
+      for (int w = 1; w < WPM; ++w) total_h += parts[w];
+      const float mean = __fdiv_rn(total_h, (float)bond);
       safe[h] = mean > step_thr ? mean : 1.f;
       log_acc[h] += logf(safe[h]);
     }
@@ -293,21 +360,31 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
   }
 }
 
-template <typename T, int DP>
-int launch(const void* cores, const float* x, const float* left, const float* right, float* amp,
+template <typename T, int DP, bool kWhole>
+int launch_plan(const void* cores, const float* x, const float* left, const float* right, float* amp,
            float* log_out, int n_sites, int phys, int bond, int batch, float step_thr,
            float close_thr, cudaStream_t stream) {
-  const int stages = stages_for<T>(phys, DP);
-  if (stages == 0) return (int)cudaErrorInvalidValue;
-  const int smem = make_layout<T>(phys, DP, stages).total;
-  auto kernel = mps_tc_kernel<T, DP>;
+  const Plan p = plan_for<T>(phys, DP);
+  const int smem = make_layout<T>(phys, DP, p.blocks, p.nx).total;
+  auto kernel = mps_tc_kernel<T, DP, kWhole>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (batch + kRows - 1) / kRows;
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(cores), x, left, right, amp,
-                                           log_out, n_sites, phys, bond, batch, stages, step_thr,
-                                           close_thr);
+                                           log_out, n_sites, phys, bond, batch, p.blocks, p.nx,
+                                           step_thr, close_thr);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DP>
+int launch(const void* cores, const float* x, const float* left, const float* right, float* amp,
+           float* log_out, int n_sites, int phys, int bond, int batch, float step_thr,
+           float close_thr, cudaStream_t stream) {
+  const Plan p = plan_for<T>(phys, DP);
+  if (p.blocks == 0) return (int)cudaErrorInvalidValue;
+  auto run = p.whole ? launch_plan<T, DP, true> : launch_plan<T, DP, false>;
+  return run(cores, x, left, right, amp, log_out, n_sites, phys, bond, batch, step_thr, close_thr,
+             stream);
 }
 
 int padded_bond(int bond) { return bond <= 32 ? 32 : bond <= 64 ? 64 : 128; }
@@ -332,9 +409,9 @@ int dispatch(const void* cores, const float* x, const float* left, const float* 
 
 extern "C" {
 
-// cores laid out as (N, d, DP, DP + 8), fp32 or bf16, zero beyond (d, D, D),
-// with DP = 32, 64 or 128 the smallest that holds D (cn_mps_core_rows);
-// x (B, N, d) fp32; left/right (D,) fp32.  Writes amp and log (B,) fp32.
+// cores laid out as (N, d, DP, LD), fp32 or bf16, zero beyond (d, D, D), with
+// DP = cn_mps_core_rows(D) and LD = cn_mps_core_ld(D); x (B, N, d) fp32;
+// left/right (D,) fp32.  Writes amp and log (B,) fp32.
 int cn_mps_evaluate(const void* cores, int cores_bf16, const float* x, const float* left,
                     const float* right, float* amp, float* log_out, int n_sites, int phys,
                     int bond, int batch, float step_thr, float close_thr, void* stream) {
@@ -346,18 +423,21 @@ int cn_mps_evaluate(const void* cores, int cores_bf16, const float* x, const flo
                          close_thr, s);
 }
 
-// DP, the rows of each (DP, DP + 8) block of the core layout for bond D.
+// DP, the rows of each (DP, LD) block of the core layout for bond D.
 int cn_mps_core_rows(int bond) { return padded_bond(bond); }
 
-// Dynamic shared memory of one CTA for these operands (bytes), or -1 when no
-// pipeline depth fits the per-block limit.
+// LD, the row length (elements) of each block of the core layout for bond D.
+int cn_mps_core_ld(int bond) { return core_ld(padded_bond(bond)); }
+
+// Dynamic shared memory of one CTA for these operands (bytes), or -1 when the
+// bond exceeds 128 or not even one ring slot fits the per-block limit.
 int cn_mps_evaluate_smem(int cores_bf16, int phys, int bond) {
   if (bond > 128) return -1;
   const int dp = padded_bond(bond);
-  const int stages = cores_bf16 ? stages_for<__nv_bfloat16>(phys, dp) : stages_for<float>(phys, dp);
-  if (stages == 0) return -1;
-  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, dp, stages).total
-                    : make_layout<float>(phys, dp, stages).total;
+  const Plan p = cores_bf16 ? plan_for<__nv_bfloat16>(phys, dp) : plan_for<float>(phys, dp);
+  if (p.blocks == 0) return -1;
+  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, dp, p.blocks, p.nx).total
+                    : make_layout<float>(phys, dp, p.blocks, p.nx).total;
 }
 
 }  // extern "C"

@@ -6,13 +6,15 @@ Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_mpo.py``
 -> ``_kernel``).  The CUDA source is ``csrc/mpo_env.cu`` (entry
 ``cn_mpo_env``); its header states the bound on an H100 (``4*d*W*D^3`` GEMM
 FLOPs per sample and site, run as 3xTF32 on the tensor cores for fp32 cores
-and as one bf16 pass for bf16) and the design: a persistent grid whose CTAs
-take one sample at a time and walk every site with the ``(W*D, D)`` fp32
-environment and the ket products resident in shared memory, the ket and bra
-GEMMs on ``mma.sync``, the channel mix in place between them, and the next
-site's core fetched by the TMA (``cp.async.bulk``, one copy a row) into a
-second buffer while this one computes.  A bond whose rows are not a whole
-number of 16-byte copies is zero-padded here first (:func:`aligned_bond`).
+and as one bf16 pass for bf16) and the design: one CTA per sample walks every
+site with the ``(W*D, D)`` fp32 environment and the ket products resident in
+shared memory, the ket and bra GEMMs on ``mma.sync``, the channel mix in
+place between them, and the next site's core fetched by the TMA
+(``cp.async.bulk``, one copy a row) into a second buffer while this one
+computes.  A bond whose rows are not a whole number of 16-byte copies is
+zero-padded here first (:func:`aligned_bond`).  The kernel takes D <= 64,
+d*W <= 16 and W <= 8 at D > 32, within its shared memory
+(``cn_mpo_env_smem``); other shapes raise ``ValueError``.
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 per site, ``d`` ket GEMMs ``(W D, D) x (D, D)`` with the environment cast to
@@ -180,8 +182,9 @@ def mpo_env(cores, env0, entries, wdim):
     smem = lib.cn_mpo_env_smem(bf16, phys, bond, wdim)
     if smem < 0 or smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"d={phys}, D={bond}, W={wdim} does not fit the kernel's "
-            f"{_build.SMEM_LIMIT} bytes of shared memory per block"
+            f"d={phys}, D={bond}, W={wdim} is outside the MPO kernel's reach "
+            f"(W <= 8 at D > 32, and {_build.SMEM_LIMIT} bytes of shared "
+            "memory per block)"
         )
     layout = aligned_bond(bond, cores.dtype)
     pad = layout - bond

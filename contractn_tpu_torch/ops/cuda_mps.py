@@ -6,11 +6,13 @@ Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_mps.py``
 bound on an H100 (the chain's ``2*B*N*d*D^2`` GEMM FLOPs run as 3xTF32 on the
 tensor cores for fp32 cores, one bf16 pass for bf16) and the design: one CTA
 per 32-row batch tile walks every site with the fp32 carry on chip, each
-site's GEMM on ``mma.sync``, the next cores fetched by the TMA
-(``cp.async.bulk``, one copy a site) into a ring of shared-memory stages
-while the current site computes.  For that single copy the wrapper lays the
-cores out once as ``(N, d, DP, DP + 8)``, zero-padded (DP = 32, 64 or 128),
-which is the shared-memory layout the kernel reads without bank conflicts.
+site's GEMM on ``mma.sync``, the coming cores fetched by the TMA
+(``cp.async.bulk``, one copy per physical index of a site) into a ring of
+shared-memory slots while the current site computes.  For those single
+copies the wrapper lays the cores out as ``(N, d, DP, LD)``, zero-padded,
+with ``DP`` and ``LD`` from the library (``cn_mps_core_rows``,
+``cn_mps_core_ld``): the shared-memory layout the kernel reads without bank
+conflicts.  That copy is made on every call.
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 
@@ -54,6 +56,7 @@ _TC_SIGNATURES = {
         ctypes.c_float, ctypes.c_void_p,
     ],
     "cn_mps_core_rows": [ctypes.c_int],
+    "cn_mps_core_ld": [ctypes.c_int],
     "cn_mps_evaluate_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
 }
 
@@ -176,8 +179,8 @@ def cuda_mps_evaluate(cores, left, right, x):
     check_cuda_chain(cores, (left, right, x), bond, phys,
                      smem=lib.cn_mps_evaluate_smem(bf16, phys, bond))
     xf = f32_input(x)
-    rows = lib.cn_mps_core_rows(bond)
-    cores_k = torch.nn.functional.pad(cores, (0, rows + 8 - bond, 0, rows - bond))
+    rows, ld = lib.cn_mps_core_rows(bond), lib.cn_mps_core_ld(bond)
+    cores_k = torch.nn.functional.pad(cores, (0, ld - bond, 0, rows - bond))
     left_f = left.to(torch.float32).contiguous()
     right_f = right.to(torch.float32).contiguous()
     amp = torch.empty(batch, dtype=torch.float32, device=cores.device)

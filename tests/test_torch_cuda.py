@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
-from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
+from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
 
 
 @pytest.fixture
@@ -65,3 +65,38 @@ def test_mpo_kernel_matches_plain_on_gpu(cuda_device, dtype, bond):
     tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
     shape = {"n_sites": 8, "bond": bond, "batch": 12}
     chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol, f"mpo_env D={bond}", seed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("phys,bond", [(3, 96), (3, 128), (20, 24), (900, 4)])
+def test_chain_kernel_reach_on_gpu(cuda_device, dtype, phys, bond):
+    # d = 3 at D > 64 (fp32) and d = 20 run a core ring shorter than one
+    # site; d = 900 reads x in place
+    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
+    shape = {"n_sites": 7, "phys": phys, "bond": bond, "batch": 40}
+    cores, left, right, x = chip_smoke.mps_inputs(shape, cuda_device, dtype, seed=9)
+    chip_smoke.compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
+                             cuda_mps.mps_evaluate_plain(cores, left, right, x),
+                             tol, f"mps_evaluate d={phys} D={bond}",
+                             chip_smoke.mps_condition(cores, left, right, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", chip_smoke.REACH_MPO,
+                         ids=lambda s: f"{s['mpo']}-D{s['bond']}")
+def test_mpo_kernel_reach_on_gpu(cuda_device, dtype, shape):
+    # Heisenberg (W 5) at D <= 32 and D = 48, W 1, 2 and 4 at D = 64, W 8
+    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
+    chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol,
+                               f"mpo_env {shape['mpo']} D={shape['bond']}", seed=10)
+
+
+@pytest.mark.cuda
+def test_mpo_kernel_refuses_shapes_out_of_reach_on_gpu(cuda_device):
+    # W = 9 at D > 32 has more bra tiles than a warp keeps
+    cores = torch.zeros((2, 3, 1, 40, 40), device=cuda_device)
+    env0 = torch.zeros((9 * 40, 40), device=cuda_device)
+    with pytest.raises(ValueError, match="outside the MPO kernel's reach"):
+        cuda_mpo.mpo_env(cores, env0, (), 9)
