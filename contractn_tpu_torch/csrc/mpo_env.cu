@@ -24,10 +24,10 @@
 //          a warp takes strips of one (e, 16-row, 32-column) tile over NW
 //          environment blocks w, so each split B fragment serves NW
 //          products, one accumulator each (the 3 TF32 passes into it).
-//          Where E and t do not fit side by side (W = 4 or 5 at D = 64), E
-//          lives over the rooms of the last e's products, and those strips
-//          (at most one a warp) stay in registers until every warp has read
-//          E, behind one more barrier;
+//          Where E and t do not fit side by side (W = 4, 5 at D = 64,
+//          d = 2), E lives over the rooms of the last e's products, and
+//          those strips (at most one a warp) stay in registers until every
+//          warp has read E, behind one more barrier;
 //       2. channel mix in place: t2[v*d+p] = sum_q M[v*d+p][q] t[q], one
 //          thread per (i, l) holding all d*W blocks in registers; the result
 //          is rounded to the core type (the Pallas kernel's cast before the
@@ -53,11 +53,11 @@
 //   * Async copies: the next site's core (d, D, D), 32 KB at fp32, lands in
 //     the second of two shared buffers by the TMA (cp.async.bulk, one row per
 //     copy, spread over the threads, completion on an mbarrier) while this
-//     site computes.  Where two buffers do not fit even with E over t (large
-//     d*W), one buffer is refilled after the site's last read of it.  (The cores are
-//     (B, N, d, D, D), 1.6 GB at the bench shape: the padded copy that lets
-//     kernel #1 fetch a block in one request would move 3.5 GB more through
-//     HBM a call.)
+//     site computes.  Where two buffers do not fit even with E over t
+//     (large d*W), one buffer is refilled after the site's last read of it.
+//     (The cores are (B, N, d, D, D), 1.6 GB at the bench shape: the padded
+//     copy that lets kernel #1 fetch a block in one request would move
+//     3.5 GB more through HBM a call.)
 //   * Shared memory (fp32, W = 3, D = 64, d = 2): t 98,304 B (d*W blocks of
 //     64 x 64 fp32, unpadded, XOR-swizzled for the B pattern, tc_common.cuh
 //     swz) + E 52,224 B (rows padded to D + 4 floats for the A pattern) + 2

@@ -174,7 +174,7 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
   __syncthreads();
 
   // unit u into ring slot u % slots: one TMA copy, started by one thread
-  auto issue = [&](int u) {
+  auto start_unit = [&](int u) {
     if (threadIdx.x == 0 && u < units) {
       const int slot = u % slots;
       const uint32_t bytes = unit_elems * sizeof(T);
@@ -195,8 +195,8 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
     }
     cp_async_commit();
   };
-  for (int u = 0; u < slots; ++u) issue(u);
-  int next = slots;  // the next unit to issue (the same count in every thread)
+  for (int u = 0; u < slots; ++u) start_unit(u);
+  int next = slots;  // the next unit to start (the same count in every thread)
   if (nx) fetch_x(0);
 
   // carry: fp32 in registers at this thread's C positions, the operand copy
@@ -280,11 +280,11 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
           vn[c][e] = k == 0 ? p : __fadd_rn(vn[c][e], p);
         }
       // a ring shorter than one site: refill block j's slot before this
-      // site needs block j + blocks
+      // site needs block j + slots
       if constexpr (!kWhole) {
         if (k + slots < phys) {
           __syncthreads();  // every read of block j done
-          issue(next++);
+          start_unit(next++);
         }
       }
     }
@@ -303,7 +303,7 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
     }
     __syncthreads();  // B: partials written; every read of v_s and this site's blocks done
     // refill the slots this site freed
-    for (; next < (n + 1) * phys / per + slots; ++next) issue(next);
+    for (; next < (n + 1) * phys / per + slots; ++next) start_unit(next);
 
     float safe[2];
 #pragma unroll
@@ -361,9 +361,9 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
 }
 
 template <typename T, int DP, bool kWhole>
-int launch_plan(const void* cores, const float* x, const float* left, const float* right, float* amp,
-           float* log_out, int n_sites, int phys, int bond, int batch, float step_thr,
-           float close_thr, cudaStream_t stream) {
+int launch_plan(const void* cores, const float* x, const float* left, const float* right,
+                float* amp, float* log_out, int n_sites, int phys, int bond, int batch,
+                float step_thr, float close_thr, cudaStream_t stream) {
   const Plan p = plan_for<T>(phys, DP);
   const int smem = make_layout<T>(phys, DP, p.blocks, p.nx).total;
   auto kernel = mps_tc_kernel<T, DP, kWhole>;

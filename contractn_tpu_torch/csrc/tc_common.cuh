@@ -116,7 +116,9 @@ struct Tc<float> {
     split_tf32(b(t, g), f.hi[0], f.lo[0]);
     split_tf32(b(t + 4, g), f.hi[1], f.lo[1]);
   }
-  // big += hi*hi; small += hi*lo + lo*hi
+  // big += hi*hi; small += hi*lo + lo*hi.  Kept apart, mps_chain_tc.cu ran
+  // 8% faster and nearer fp32 than with one accumulator (NVIDIA H100 80GB
+  // HBM3, 700 W; PERF.md)
   __device__ __forceinline__ static void mma(float* big, float* small, const AFrag& a,
                                              const BFrag& b) {
     mma_tf32(small, a.lo, b.hi);
@@ -185,14 +187,12 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Wait until at most `pending` of this thread's groups are in flight.
+// Wait until at most `pending` (0 or 1) of this thread's groups are in flight.
 __device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
+  if (pending)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ TMA bulk copies

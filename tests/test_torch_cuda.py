@@ -58,13 +58,21 @@ def test_chain_kernel_pads_an_unaligned_bond_on_gpu(cuda_device, dtype):
                              chip_smoke.mps_condition(cores, left, right, x))
 
 
+# TFIM at three bonds, then the edges of the kernel's reach: Heisenberg (W 5)
+# at D <= 32 and D = 48, W 1, 2 and 4 at D = 64, W 8
+MPO_SHAPES = [{"n_sites": 8, "bond": bond, "batch": 12} for bond in (32, 48, 20)]
+MPO_SHAPES += chip_smoke.REACH_MPO
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bond", [32, 48, 20])
-def test_mpo_kernel_matches_plain_on_gpu(cuda_device, dtype, bond):
+@pytest.mark.parametrize("shape", MPO_SHAPES,
+                         ids=lambda s: f"{s.get('mpo', 'tfim')}-D{s['bond']}")
+def test_mpo_kernel_matches_plain_on_gpu(cuda_device, dtype, shape):
     tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
-    shape = {"n_sites": 8, "bond": bond, "batch": 12}
-    chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol, f"mpo_env D={bond}", seed=6)
+    chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol,
+                               f"mpo_env {shape.get('mpo', 'tfim')} D={shape['bond']}",
+                               seed=6)
 
 
 @pytest.mark.cuda
@@ -80,17 +88,6 @@ def test_chain_kernel_reach_on_gpu(cuda_device, dtype, phys, bond):
                              cuda_mps.mps_evaluate_plain(cores, left, right, x),
                              tol, f"mps_evaluate d={phys} D={bond}",
                              chip_smoke.mps_condition(cores, left, right, x))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", chip_smoke.REACH_MPO,
-                         ids=lambda s: f"{s['mpo']}-D{s['bond']}")
-def test_mpo_kernel_reach_on_gpu(cuda_device, dtype, shape):
-    # Heisenberg (W 5) at D <= 32 and D = 48, W 1, 2 and 4 at D = 64, W 8
-    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
-    chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol,
-                               f"mpo_env {shape['mpo']} D={shape['bond']}", seed=10)
 
 
 @pytest.mark.cuda
