@@ -10,11 +10,15 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
 2. build: every CUDA source of the package, one nvcc each, all at once;
    each kernel's registers, spills and shared memory;
 3. kernels against plain: each hand kernel against its plain torch version
-   on the card, float32 and bfloat16, at small shapes whose bonds do not
-   fill the kernels' tiles (MPS D 40, MPO D 24 and 48), at the main-path
-   shapes, and at the edges of the kernels' reach: MPS rings shorter than a
-   site (d 3 at D 120, d 20 at D 24) and x read in place (d 900); MPO with
-   W 1, 2, 4, 5 (Heisenberg) and 8, one core buffer where two do not fit;
+   on the card, float32 and bfloat16 cores, at small shapes whose bonds do
+   not fill the kernels' tiles (MPS D 40 and 20, MPO D 24 and 48), at the
+   main-path shapes, and at the edges of the kernels' reach: MPS rings
+   shorter than a site (d 3 at D 120, d 20 at D 24) and x read in place
+   (d 900), each for the closing chain (#1) and the carry-returning one (#2,
+   float32 and bfloat16 carry); MPO with W 1, 2, 4, 5 (Heisenberg) and 8,
+   one core buffer where two do not fit, and the exact-D path where no
+   tensor-core tier fits (d 2, W 7, D 50; d 1, W 9, D 55), each asserting
+   which of the MPO kernel's paths launched;
 4. main path through the user entry points: the three README examples via
    ``TN.contract``, the flagship batched ``MPS.evaluate`` (1000 sites x d 2
    x bond 64 x batch 4096, float32), the carry-returning evaluation at the
@@ -24,7 +28,8 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    a float64 reference;
 5. times: each kernel and its plain version with CUDA events (median of 7
    after a warm-up), beside the least time the card could take for
-   fp32-accurate work (GEMMs as 3xTF32 on the tensor cores).
+   fp32-accurate work (GEMMs as 3xTF32 on the tensor cores): #2 under both
+   carries, and #3's exact-D path at a restored shape.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -47,6 +52,7 @@ ROOT = Path(__file__).resolve().parent
 FLAGSHIP = {"n_sites": 1000, "phys": 2, "bond": 64, "batch": 4096}
 MPO_BENCH = {"n_sites": 50, "bond": 64, "batch": 1000}
 SMALL_MPS = {"n_sites": 37, "phys": 3, "bond": 40, "batch": 70}
+UNALIGNED_MPS = {"n_sites": 9, "phys": 2, "bond": 20, "batch": 33}  # bf16 row of 40 B
 SMALL_MPO = {"n_sites": 7, "bond": 24, "batch": 9}
 RAGGED_MPO = {"n_sites": 6, "bond": 48, "batch": 5}  # not a multiple of 32
 # Edges of the kernels' reach (see the headers of csrc/mps_chain_tc.cu and
@@ -64,6 +70,13 @@ REACH_MPO = (
     {"n_sites": 5, "bond": 64, "batch": 16, "mpo": (3, 1)},
     {"n_sites": 5, "bond": 40, "batch": 16, "mpo": (1, 8)},  # W 8
 )
+# Shapes no tensor-core tier of the MPO kernel holds, in either dtype: its
+# exact-D path runs them
+EXACT_MPO = (
+    {"n_sites": 5, "bond": 50, "batch": 16, "mpo": (2, 7), "path": "exact"},
+    {"n_sites": 5, "bond": 55, "batch": 16, "mpo": (1, 9), "path": "exact"},
+)
+EXACT_BENCH = {"n_sites": 50, "bond": 50, "batch": 1000, "mpo": (2, 7)}
 
 # Agreement of log|psi| between a kernel and its plain version, scaled by
 # each sample's condition number (see mps_condition, condition, PERF.md)
@@ -305,10 +318,10 @@ def ptxas_report(text):
 
 def _demangle(name):
     """A short readable name for a mangled kernel template instance."""
-    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mps_chain_kernel)", name)
-    args = re.findall(r"Li(\d+)E", name)
+    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mpo_env_exact_kernel)", name)
+    args = re.findall(r"L[ib](\d+)E", name)
     dtype = "bf16" if "nv_bfloat16" in name else "f32"
-    return f"{base.group(1) if base else name}<{dtype},{','.join(args)}>"
+    return f"{base.group(1) if base else name}<{','.join([dtype, *args])}>"
 
 
 def kernel_smem(device):
@@ -319,48 +332,31 @@ def kernel_smem(device):
     mps = cuda_mps.tc_library()
     mpo = cuda_mpo.library()
     d, bond = FLAGSHIP["phys"], FLAGSHIP["bond"]
+    mpo_shapes = [(2, MPO_BENCH["bond"], 3)]
+    mpo_shapes += [(s["mpo"][0], s["bond"], s["mpo"][1]) for s in EXACT_MPO]
     for bf16, tag in ((0, "fp32"), (1, "bf16")):
-        log(f"  #1 cn_mps_evaluate {tag} d={d} D={bond}: "
+        log(f"  #1 and #2 (one layout) {tag} d={d} D={bond}: "
             f"{mps.cn_mps_evaluate_smem(bf16, d, bond)} bytes dynamic shared memory")
-        log(f"  #3 cn_mpo_env {tag} d=2 D={MPO_BENCH['bond']} W=3: "
-            f"{mpo.cn_mpo_env_smem(bf16, 2, MPO_BENCH['bond'], 3)} bytes dynamic shared memory")
+        for p, b, w in mpo_shapes:
+            path = cuda_mpo.PATHS[mpo.cn_mpo_env_path(bf16, p, b, w)]
+            log(f"  #3 cn_mpo_env {tag} d={p} D={b} W={w}: {path} path, "
+                f"{mpo.cn_mpo_env_smem(bf16, p, b, w)} bytes dynamic shared memory")
 
 
 def phase_kernels_vs_plain(device):
-    """Every kernel against its plain version, small and main-path shapes."""
-    from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
-
+    """Every kernel against its plain version, small and main-path shapes
+    and the edges of each kernel's reach."""
     errors = {}
-    for tag, shape in (("small", SMALL_MPS), ("main", FLAGSHIP)):
-        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-            cores, left, right, x = mps_inputs(shape, device, dtype, seed=1)
-            err = compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
-                                cuda_mps.mps_evaluate_plain(cores, left, right, x),
-                                tol, f"#1 mps_evaluate {tag} {dtype}",
-                                mps_condition(cores, left, right, x))
+    mps_shapes = [("small", SMALL_MPS, 1), ("main", FLAGSHIP, 1), ("D=20", UNALIGNED_MPS, 7)]
+    mps_shapes += [(f"d={s['phys']} D={s['bond']}", s, 8) for s in REACH_MPS]
+    for tag, shape, seed in mps_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            err1, err2 = compare_chains(shape, device, dtype, f"{tag} {dtype}", seed)
             if tag == "main" and dtype == torch.float32:
-                errors["mps_evaluate"] = err
-        cores, left, right, x = mps_inputs(shape, device, torch.float32, seed=2)
-        cond = mps_condition(cores, left, right, x)
-        for acc in (torch.float32, torch.bfloat16):
-            got = cuda_epilogue.epilogue_chain(cores, left, x, acc)
-            ref = cuda_epilogue.epilogue_chain_plain(cores, left, x, acc)
-            tol = TOL_F32 if acc == torch.float32 else TOL_BF16
-            close = [(v.float() @ right, lg) for v, lg in (got, ref)]
-            err = compare_split(close[0], close[1], tol, f"#2 epilogue {tag} acc {acc}",
-                                cond)
-            if tag == "main" and acc == torch.float32:
-                errors["mps_evaluate_epilogue"] = err
-    for shape in REACH_MPS:
-        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
-            cores, left, right, x = mps_inputs(shape, device, dtype, seed=8)
-            compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
-                          cuda_mps.mps_evaluate_plain(cores, left, right, x), tol,
-                          f"#1 mps_evaluate d={shape['phys']} D={shape['bond']} {dtype}",
-                          mps_condition(cores, left, right, x))
+                errors["mps_evaluate"], errors["mps_evaluate_epilogue"] = err1, err2
     mpo_shapes = [(tag, shape) for tag, shape in
                   (("small", SMALL_MPO), ("ragged", RAGGED_MPO), ("main", MPO_BENCH))]
-    mpo_shapes += [(f"{s['mpo']} D={s['bond']}", s) for s in REACH_MPO]
+    mpo_shapes += [(f"{s['mpo']} D={s['bond']}", s) for s in REACH_MPO + EXACT_MPO]
     for tag, shape in mpo_shapes:
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             err = compare_mpo_env(shape, device, dtype, tol, f"#3 mpo_env {tag} {dtype}")
@@ -369,9 +365,41 @@ def phase_kernels_vs_plain(device):
     return errors
 
 
+def compare_chains(shape, device, dtype, what, seed):
+    """Kernels #1 and #2 against their plain versions on one input: #1's
+    amplitudes, and #2's carry under a float32 and a bfloat16 carry, closed
+    with ``right`` in float32 (as the main path closes it).  Each launch
+    must count once.  Returns the largest |d log|psi|| of #1 and of #2
+    under the float32 carry."""
+    from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
+
+    cores, left, right, x = mps_inputs(shape, device, dtype, seed=seed)
+    cond = mps_condition(cores, left, right, x)
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    before = cuda_mps.cuda_mps_evaluate.launches
+    got = cuda_mps.cuda_mps_evaluate(cores, left, right, x)
+    assert cuda_mps.cuda_mps_evaluate.launches == before + 1, "#1 did not launch"
+    err1 = compare_split(got, cuda_mps.mps_evaluate_plain(cores, left, right, x), tol,
+                         f"#1 mps_evaluate {what}", cond)
+    errs = {}
+    for acc in (torch.float32, torch.bfloat16):
+        before = cuda_epilogue.epilogue_chain.launches
+        got = cuda_epilogue.epilogue_chain(cores, left, x, acc)
+        assert cuda_epilogue.epilogue_chain.launches == before + 1, "#2 did not launch"
+        assert got[0].dtype == acc and got[0].shape == (x.shape[0], cores.shape[2])
+        ref = cuda_epilogue.epilogue_chain_plain(cores, left, x, acc)
+        close = [(v.float() @ right, lg) for v, lg in (got, ref)]
+        errs[acc] = compare_split(close[0], close[1],
+                                  tol if acc == torch.float32 else TOL_BF16,
+                                  f"#2 epilogue {what} acc {acc}", cond)
+    return err1, errs[torch.float32]
+
+
 def compare_mpo_env(shape, device, dtype, tol, what, seed=3):
     """Kernel #3 against its plain version: the closed environments as split
-    pairs, tolerance ``tol`` per unit of the close's condition number."""
+    pairs, tolerance ``tol`` per unit of the close's condition number.  The
+    launch must count once, on the path ``shape["path"]`` names (the
+    tensor-core one by default)."""
     from contractn_tpu_torch.ops import cuda_mpo
     from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
 
@@ -380,9 +408,12 @@ def compare_mpo_env(shape, device, dtype, tol, what, seed=3):
     env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
     entries = mpo_entries(mpo)
     weight = torch.einsum("w,i,k->wik", mpo.right, ones, ones).reshape(-1)
-    before = cuda_mpo.mpo_env.launches
+    path = shape.get("path", "tensor_core")
+    before = cuda_mpo.mpo_env.launches, dict(cuda_mpo.mpo_env.launches_by_path)
     got = cuda_mpo.mpo_env(cores, env0, entries, wdim)
-    assert cuda_mpo.mpo_env.launches == before + 1
+    assert cuda_mpo.mpo_env.launches == before[0] + 1
+    assert cuda_mpo.mpo_env.launches_by_path[path] == before[1][path] + 1, (
+        f"{what}: the {path} path did not launch")
     ref = cuda_mpo.mpo_env_plain(cores, env0, entries, wdim)
     close = [(env.reshape(env.shape[0], -1) @ weight, lg) for env, lg in (got, ref)]
     return compare_split(close[0], close[1], tol, what,
@@ -395,6 +426,8 @@ def reset_counters():
     cuda_mps.cuda_mps_evaluate.launches = 0
     cuda_epilogue.epilogue_chain.launches = 0
     cuda_mpo.mpo_env.launches = 0
+    for path in cuda_mpo.mpo_env.launches_by_path:
+        cuda_mpo.mpo_env.launches_by_path[path] = 0
 
 
 def read_counters():
@@ -404,6 +437,7 @@ def read_counters():
         "mps_evaluate": cuda_mps.cuda_mps_evaluate.launches,
         "mps_evaluate_epilogue": cuda_epilogue.epilogue_chain.launches,
         "mpo_env": cuda_mpo.mpo_env.launches,
+        **{f"mpo_env.{path}": n for path, n in cuda_mpo.mpo_env.launches_by_path.items()},
     }
 
 
@@ -515,9 +549,9 @@ def _check_reference(what, got, ref, batch, cond):
 
 
 def phase_times(device):
-    """Kernel and plain times at the main-path shapes, with the bound."""
+    """Kernel and plain times at the main-path shapes, with the bound: #2
+    under both carries, and #3's exact-D path at a shape only it takes."""
     from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
-    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
 
     out = {}
     n, d, bond, batch = (FLAGSHIP[k] for k in ("n_sites", "phys", "bond", "batch"))
@@ -533,38 +567,53 @@ def phase_times(device):
     lib = cuda_mps.tc_library()
     rows, ld = lib.cn_mps_core_rows(bond), lib.cn_mps_core_ld(bond)
     pad = cuda_time(lambda: torch.nn.functional.pad(cores, (0, ld - bond, 0, rows - bond)))
-    log(f"  mps_evaluate wrapper: the (N, d, {rows}, {ld}) layout copy of the cores "
-        f"takes {pad:.3f} ms of the call")
-    out["mps_evaluate_epilogue"] = (
-        cuda_time(lambda: cuda_epilogue.epilogue_chain(cores, left, x)),
-        cuda_time(lambda: cuda_epilogue.epilogue_chain_plain(cores, left, x), reps=5),
-        *bound_ms(gemm, elem, in_bytes + 4 * batch * (bond + 1)),
-    )
-    mpo, mcores, ones = mpo_inputs(MPO_BENCH, device, torch.float32, seed=6)
-    wdim = mpo.cores.shape[3]
-    bond = MPO_BENCH["bond"]
-    env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
-    entries = mpo_entries(mpo)
-    b, n, d = MPO_BENCH["batch"], MPO_BENCH["n_sites"], mcores.shape[2]
-    # per sample and site: d*W ket and W bra GEMMs; the mix and the rescale
-    gemm_site = 4 * d * wdim * bond ** 3
-    elem_site = 2 * len(entries) * bond ** 2 + 3 * wdim * bond ** 2
-    out["mpo_env"] = (
-        cuda_time(lambda: cuda_mpo.mpo_env(mcores, env0, entries, wdim)),
-        cuda_time(lambda: cuda_mpo.mpo_env_plain(mcores, env0, entries, wdim), reps=5),
-        *bound_ms(b * n * gemm_site, b * n * elem_site,
-                  4 * (mcores.numel() + env0.numel() + b * (wdim * bond * bond + 1))),
-    )
+    log(f"  #1 and #2 wrappers: the (N, d, {rows}, {ld}) layout copy of the cores "
+        f"takes {pad:.3f} ms of each call")
+    for acc, key in ((torch.float32, "mps_evaluate_epilogue"),
+                     (torch.bfloat16, "mps_evaluate_epilogue, bf16 carry")):
+        out_bytes = batch * (bond * torch.empty((), dtype=acc).element_size() + 4)
+        out[key] = (
+            cuda_time(lambda: cuda_epilogue.epilogue_chain(cores, left, x, acc)),
+            cuda_time(lambda: cuda_epilogue.epilogue_chain_plain(cores, left, x, acc), reps=5),
+            *bound_ms(gemm, elem, in_bytes - 4 * bond + out_bytes),
+        )
+    out["mpo_env"] = time_mpo_env(MPO_BENCH, device, "tensor_core")
+    out[f"mpo_env, exact-D path, {EXACT_BENCH}"] = time_mpo_env(EXACT_BENCH, device, "exact")
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {bms:.3f} ms ({by})")
     return out
 
 
+def time_mpo_env(shape, device, path):
+    """Kernel #3 and its plain version at ``shape``, float32, with the bound;
+    the kernel must run on ``path``."""
+    from contractn_tpu_torch.ops import cuda_mpo
+    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
+
+    mpo, cores, ones = mpo_inputs(shape, device, torch.float32, seed=6)
+    wdim, bond = mpo.cores.shape[3], shape["bond"]
+    env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
+    entries = mpo_entries(mpo)
+    b, n, d = shape["batch"], shape["n_sites"], cores.shape[2]
+    before = cuda_mpo.mpo_env.launches_by_path[path]
+    ms = cuda_time(lambda: cuda_mpo.mpo_env(cores, env0, entries, wdim))
+    assert cuda_mpo.mpo_env.launches_by_path[path] > before, f"the {path} path did not launch"
+    # per sample and site: d*W ket and W bra GEMMs; the mix and the rescale
+    gemm_site = 4 * d * wdim * bond ** 3
+    elem_site = 2 * len(entries) * bond ** 2 + 3 * wdim * bond ** 2
+    return (
+        ms,
+        cuda_time(lambda: cuda_mpo.mpo_env_plain(cores, env0, entries, wdim), reps=5),
+        *bound_ms(b * n * gemm_site, b * n * elem_site,
+                  4 * (cores.numel() + env0.numel() + b * (wdim * bond * bond + 1))),
+    )
+
+
 SOURCES = {
     "mps_evaluate": ("contractn_tpu_torch/csrc/mps_chain_tc.cu",
                      "contractn_tpu/ops/pallas_mps.py:152"),
-    "mps_evaluate_epilogue": ("contractn_tpu_torch/csrc/mps_chain.cu",
+    "mps_evaluate_epilogue": ("contractn_tpu_torch/csrc/mps_chain_tc.cu",
                               "contractn_tpu/ops/pallas_epilogue.py:128"),
     "mpo_env": ("contractn_tpu_torch/csrc/mpo_env.cu",
                 "contractn_tpu/ops/pallas_mpo.py:134"),
@@ -596,6 +645,8 @@ def main():
         counts = runs[path][0]
         if counts[kernel] < 1:
             raise AssertionError(f"the {path} path never launched kernel {kernel}")
+    if runs["mpo_expectation"][0]["mpo_env.tensor_core"] < 1:
+        raise AssertionError("the MPO main path did not run #3's tensor-core path")
     log("== 5. times")
     times = phase_times(device)
     kernels = []

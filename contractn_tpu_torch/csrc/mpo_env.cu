@@ -65,11 +65,23 @@
 //     barriers 16 B = 224,336 B of the 232,448 B a block may opt in to.  E
 //     over t saves all of E but W*D*4 floats of row padding (plan_for).
 //     Rows and columns past D (D < 32 or 64, the tiles' sizes) stay zero.
-//   * Reach: D <= 64, d*W <= 16, W <= 8 at D > 32, and t, E's padding and
-//     one core buffer within the opt-in limit.
+//   * Reach of the tensor-core path: D <= 64, d*W <= 16, W <= 8 at D > 32,
+//     and t, E's padding and one core buffer within the opt-in limit.  The
+//     operand layout asks for D * sizeof(T) to be a multiple of 16 bytes;
+//     the wrapper pads the bond with zeros otherwise (ops/cuda_mpo.py).
 //
-// The operand layout asks for D * sizeof(T) to be a multiple of 16 bytes;
-// the wrapper pads the bond with zeros otherwise (ops/cuda_mpo.py).
+// Exact-D path (mpo_env_exact_kernel), for the shapes the tensor-core tiers
+// do not hold: 33 <= D <= 64 where d*W ket blocks padded to 64 rows do not
+// fit beside E and a core buffer (for example d = 2 with W = 6..8, d = 1
+// with W = 9..16), up to D = 62 or so.  It holds every operand at exactly D,
+// fp32, on the FMA units (67 TFLOP/s, not the tensor cores): E (W*D, D+1),
+// t (d*W, D, D), the core (d, D, D) read synchronously each site; a 16 x 16
+// thread grid, each thread a 4 x 4 tile of every D x D product (D <= 64);
+// the same four steps, casts, mix and rescale as above.  One C function
+// (path_for, exported as cn_mpo_env_path) picks the path from the shape
+// before the launch: the tensor-core path wherever a plan of it fits, the
+// exact-D path where only it fits, neither beyond.  A failed launch of one
+// path is never retried on the other.
 
 #include "tc_common.cuh"
 
@@ -377,6 +389,161 @@ mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
   if (threadIdx.x == 0) log_out[b] = log_acc;
 }
 
+// ------------------------------------------------------------ exact-D path
+
+constexpr int kExactThreads = 256;
+constexpr int kExactTX = 16;  // a 16 x 16 thread grid
+constexpr int kExactCT = 4;   // each thread's 4 x 4 tile of a D x D product (D <= 64)
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// Shared memory of the exact-D path (bytes): E (W*D, D+1), t (d*W, D, D),
+// the core (d, D, D) in fp32 and one partial a warp
+int exact_smem(int phys, int bond, int wdim) {
+  return 4 * (wdim * bond * (bond + 1) + (phys * wdim + phys) * bond * bond + kExactThreads / 32);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kExactThreads)
+mpo_env_exact_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
+                     const __grid_constant__ Mix mix, float* __restrict__ env_out,
+                     float* __restrict__ log_out, int n_sites, int phys, int bond, int wdim,
+                     float count, float thr) {
+  constexpr int CT = kExactCT, TX = kExactTX;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int dd = bond * bond, es = bond + 1, nq = phys * wdim;
+  float* e_s = reinterpret_cast<float*>(smem);  // E (W*D, D+1)
+  float* t_s = e_s + wdim * bond * es;           // t (d*W, D, D)
+  float* a_s = t_s + nq * dd;                    // this site's core (d, D, D)
+  float* red_s = a_s + phys * dd;                // one partial a warp
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const T* sample = cores + (size_t)blockIdx.x * n_sites * phys * dd;
+  for (int e = threadIdx.x; e < wdim * dd; e += kExactThreads)
+    e_s[(e / bond) * es + e % bond] = env0[e];
+  float log_acc = 0.f;
+
+  for (int n = 0; n < n_sites; ++n) {
+    const T* core = sample + (size_t)n * phys * dd;
+    for (int e = threadIdx.x; e < phys * dd; e += kExactThreads) a_s[e] = load_f32(core + e);
+    __syncthreads();  // the core landed; E holds the rescaled environment
+
+    // 1. ket GEMMs  t[e*W + w] = E_w A_e, E cast to the core type
+    for (int w = 0; w < wdim; ++w) {
+      const float* ew = e_s + w * bond * es;
+      for (int e = 0; e < phys; ++e) {
+        const float* ae = a_s + e * dd;
+        float acc[CT][CT] = {};
+        for (int k = 0; k < bond; ++k) {
+          float ev[CT], av[CT];
+#pragma unroll
+          for (int a = 0; a < CT; ++a) {
+            const int i = ty + TX * a;
+            ev[a] = i < bond ? as_operand<T>(ew[i * es + k]) : 0.f;
+          }
+#pragma unroll
+          for (int c = 0; c < CT; ++c) {
+            const int l = tx + TX * c;
+            av[c] = l < bond ? ae[k * bond + l] : 0.f;
+          }
+#pragma unroll
+          for (int a = 0; a < CT; ++a)
+#pragma unroll
+            for (int c = 0; c < CT; ++c) acc[a][c] = fmaf(ev[a], av[c], acc[a][c]);
+        }
+        float* tq = t_s + (e * wdim + w) * dd;
+#pragma unroll
+        for (int a = 0; a < CT; ++a)
+#pragma unroll
+          for (int c = 0; c < CT; ++c) {
+            const int i = ty + TX * a, l = tx + TX * c;
+            if (i < bond && l < bond) tq[i * bond + l] = acc[a][c];
+          }
+      }
+    }
+    __syncthreads();
+
+    // 2. channel mix in place, t2[v*d + p] = sum_q M[v*d + p][q] t[q] cast to
+    // the core type (entries past d*W are zero and add exact zeros)
+    for (int p = threadIdx.x; p < dd; p += kExactThreads) {
+      float in[kMaxMix];
+#pragma unroll
+      for (int q = 0; q < kMaxMix; ++q) in[q] = q < nq ? t_s[q * dd + p] : 0.f;
+      for (int o = 0; o < nq; ++o) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < kMaxMix; ++q) s = fmaf(mix.m[o * kMaxMix + q], in[q], s);
+        t_s[o * dd + p] = as_operand<T>(s);
+      }
+    }
+    __syncthreads();
+
+    // 3. bra GEMMs  out[v] = A^T t2[v], unscaled over E (last read in step 1)
+    float part = 0.f;
+    for (int v = 0; v < wdim; ++v) {
+      const float* t2 = t_s + v * phys * dd;  // rows (p, i)
+      float acc[CT][CT] = {};
+      for (int q = 0; q < phys * bond; ++q) {
+        float av[CT], tv[CT];
+#pragma unroll
+        for (int a = 0; a < CT; ++a) {
+          const int j = ty + TX * a;
+          av[a] = j < bond ? a_s[q * bond + j] : 0.f;
+        }
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          const int l = tx + TX * c;
+          tv[c] = l < bond ? t2[q * bond + l] : 0.f;
+        }
+#pragma unroll
+        for (int a = 0; a < CT; ++a)
+#pragma unroll
+          for (int c = 0; c < CT; ++c) acc[a][c] = fmaf(av[a], tv[c], acc[a][c]);
+      }
+#pragma unroll
+      for (int a = 0; a < CT; ++a)
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          const int j = ty + TX * a, l = tx + TX * c;
+          if (j < bond && l < bond) {
+            e_s[(v * bond + j) * es + l] = acc[a][c];
+            part += fabsf(acc[a][c]);
+          }
+        }
+    }
+
+    // 4. rescale the whole environment by its mean |.|; each thread scales
+    // the entries it wrote
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (threadIdx.x % 32 == 0) red_s[threadIdx.x / 32] = part;
+    __syncthreads();  // partials written; every read of t and this core done
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kExactThreads / 32; ++w) total += red_s[w];
+    const float norm = __fdiv_rn(total, count);
+    const float safe = norm > thr ? norm : 1.f;
+    const float inv = __fdiv_rn(1.f, safe);
+    log_acc += logf(safe);
+    for (int v = 0; v < wdim; ++v)
+#pragma unroll
+      for (int a = 0; a < CT; ++a)
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          const int j = ty + TX * a, l = tx + TX * c;
+          if (j < bond && l < bond) e_s[(v * bond + j) * es + l] *= inv;
+        }
+  }
+  __syncthreads();
+  float* out = env_out + (size_t)blockIdx.x * wdim * dd;
+  for (int e = threadIdx.x; e < wdim * dd; e += kExactThreads)
+    out[e] = e_s[(e / bond) * es + e % bond];
+  if (threadIdx.x == 0) log_out[blockIdx.x] = log_acc;
+}
+
+// ------------------------------------------------------------ launches
+
 template <typename T, int DP, int NW, int NB>
 int launch(const void* cores, const float* env0, const Mix& mix, float* env_out, float* log_out,
            int batch, int n_sites, int phys, int bond, int wdim, float count, float thr,
@@ -393,7 +560,7 @@ int launch(const void* cores, const float* env0, const Mix& mix, float* env_out,
 }
 
 template <typename T>
-int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_out,
+int dispatch_tc(const void* cores, const float* env0, const Mix& mix, float* env_out,
              float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float count,
              float thr, cudaStream_t stream) {
   Config c;
@@ -414,12 +581,54 @@ int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_ou
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_exact(const void* cores, const float* env0, const Mix& mix, float* env_out,
+                 float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float count,
+                 float thr, cudaStream_t stream) {
+  const int smem = exact_smem(phys, bond, wdim);
+  auto kernel = mpo_env_exact_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, kExactThreads, smem, stream>>>(static_cast<const T*>(cores), env0, mix, env_out,
+                                                 log_out, n_sites, phys, bond, wdim, count, thr);
+  return (int)cudaGetLastError();
+}
+
+// The path for a shape, decided before any launch: the tensor-core path
+// wherever one of its plans fits, else the exact-D path where it fits
+constexpr int kOutOfReach = 0, kTensorCore = 1, kExactD = 2;
+
+template <typename T>
+int path_for(int phys, int bond, int wdim) {
+  if (phys < 1 || wdim < 1 || bond < 1 || bond > 64 || phys * wdim > kMaxMix) return kOutOfReach;
+  Config c;
+  if (config_for(bond, wdim, c) && plan_for<T>(phys, c.dp, wdim).nbuf > 0) return kTensorCore;
+  return exact_smem(phys, bond, wdim) <= kSmemLimit ? kExactD : kOutOfReach;
+}
+
+template <typename T>
+int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_out,
+             float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float count,
+             float thr, cudaStream_t stream) {
+  switch (path_for<T>(phys, bond, wdim)) {
+    case kTensorCore:
+      return dispatch_tc<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
+                            count, thr, stream);
+    case kExactD:
+      return launch_exact<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
+                             count, thr, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// cores (B, N, d, D, D) fp32 or bf16 with D * sizeof(T) a multiple of 16
-// (zero-padded by the wrapper); env0 (W*D, D) fp32 on the device; mix
+// cores (B, N, d, D, D) fp32 or bf16, on the tensor-core path with
+// D * sizeof(T) a multiple of 16 (zero-padded by the wrapper), on the
+// exact-D path as they are; the path is cn_mpo_env_path's for this D.
+// env0 (W*D, D) fp32 on the device; mix
 // (16, 16) fp32 in host memory, M[v*d+p][e*W+w] zero-padded; `count` the
 // unpadded W*D*D (the divisor of the mean).  Writes env_out (B, W*D, D) fp32
 // and log_out (B,) fp32.
@@ -436,17 +645,24 @@ int cn_mpo_env(const void* cores, int cores_bf16, const float* env0, const float
                          count, thr, s);
 }
 
-// Dynamic shared memory of one CTA for these operands (bytes), or -1 outside
-// the kernel's reach (D > 64, d*W > 16, W > 8 at D > 32, or no layout that
-// fits the per-block limit).
+// The path cn_mpo_env takes for these operands: 1 the tensor-core kernel,
+// 2 the exact-D kernel, 0 neither (D > 64, d*W > 16, or no layout of either
+// that fits the per-block limit).
+int cn_mpo_env_path(int cores_bf16, int phys, int bond, int wdim) {
+  return cores_bf16 ? path_for<__nv_bfloat16>(phys, bond, wdim) : path_for<float>(phys, bond, wdim);
+}
+
+// Dynamic shared memory of one CTA on that path (bytes), or -1 outside
+// the kernel's reach.
 int cn_mpo_env_smem(int cores_bf16, int phys, int bond, int wdim) {
+  const int path = cn_mpo_env_path(cores_bf16, phys, bond, wdim);
+  if (path == kExactD) return exact_smem(phys, bond, wdim);
+  if (path == kOutOfReach) return -1;
   Config c;
-  if (phys * wdim > kMaxMix || !config_for(bond, wdim, c)) return -1;
-  const Plan p = cores_bf16 ? plan_for<__nv_bfloat16>(phys, c.dp, wdim)
-                            : plan_for<float>(phys, c.dp, wdim);
-  if (p.nbuf == 0) return -1;
-  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, c.dp, wdim, p).total
-                    : make_layout<float>(phys, c.dp, wdim, p).total;
+  config_for(bond, wdim, c);
+  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, c.dp, wdim,
+                                                 plan_for<__nv_bfloat16>(phys, c.dp, wdim)).total
+                    : make_layout<float>(phys, c.dp, wdim, plan_for<float>(phys, c.dp, wdim)).total;
 }
 
 }  // extern "C"

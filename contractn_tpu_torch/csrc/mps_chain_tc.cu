@@ -1,8 +1,22 @@
-// Batched split-format MPS evaluation on Hopper's tensor cores:
-// psi(x_b) = l^T prod_n (sum_k x[b,n,k] A_n[k]) r, returned as (amp, log).
+// Batched split-format MPS chains on Hopper's tensor cores:
+// v_b = l^T prod_n (sum_k x[b,n,k] A_n[k]) with a per-site L1 rescale, then
+// either closed, psi(x_b) = v_b . r returned as (amp, log), or returned as
+// the carry v_b and its log.
 //
-// Replaces the Pallas TPU kernel contractn_tpu/ops/pallas_mps.py:152
-// (_mps_kernel, launched by pallas_mps_evaluate).  Entry: cn_mps_evaluate.
+// Replaces two Pallas TPU kernels, as two output modes of one template:
+//   * contractn_tpu/ops/pallas_mps.py:152 (_mps_kernel, launched by
+//     pallas_mps_evaluate): mode kClose, entry cn_mps_evaluate;
+//   * contractn_tpu/ops/pallas_epilogue.py:128 (_kernel, launched by
+//     mps_evaluate_epilogue): modes kCarryF32 and kCarryBf16 (its acc_dtype),
+//     entry cn_mps_epilogue.
+// The carry modes differ from kClose only where the Pallas kernels differ:
+// the rescale guard (the caller's step_thr: MIN_NORM / D for kClose,
+// MIN_NORM for the carry, bf16-rounded under a bf16 carry), the initial
+// carry (the wrapper passes left already cast to the core type and the
+// carry type), the bf16 rounding of every elementwise step under kCarryBf16
+// (u after the GEMM, x, each product, each running add, the row's L1 sum
+// once all its partials are added, the mean and the quotient; the log stays
+// fp32), and the end: the carry (B, D) in its type and the log, no close.
 //
 // Bound (H100 SXM): per site a (B x D) x (D x d*D) GEMM, 2*B*N*d*D^2 FLOPs
 // (6.7e10 at N = 1000, d = 2, D = 64, B = 4096), on cores of a few MB that
@@ -31,10 +45,11 @@
 //     a quad add theirs by shuffles, and lane 0 of each quad writes one
 //     partial per (row, warp) to shared memory; after a barrier every thread
 //     adds the 4 partials of its rows in a fixed order.  Then the guard
-//     mean > MIN_NORM / D, the division by safe, the log register, and the
+//     mean > step_thr, the division by safe, the log register, and the
 //     carry is written back as the next site's A operand (rounded to the core
-//     type, as the Pallas kernel casts it before each dot).  Two barriers a
-//     site.
+//     type, as the Pallas kernel casts it before each dot; under a bf16
+//     carry the registers hold the bf16 value and the operand copy that
+//     value in the core type).  Two barriers a site.
 //   * Async core pipeline: the cores stream through a ring of up to
 //     kMaxBlocks blocks -- a block is one physical index of one site,
 //     (DP, DP + 8) -- fetched by the TMA (cp.async.bulk, started by one
@@ -57,10 +72,12 @@
 //     sites) and double-buffered.  nx shrinks for large d so that the ring
 //     keeps two slots; past that (d in the hundreds) x is read in place.
 //   * Shared memory at fp32, d = 2, D = 64: 8 ring slots 147,456 B + carry
-//     8,704 B + x 8,192 B + partials 512 B + barriers 64 B = 164,928 B.
+//     8,704 B + x 8,192 B + partials 512 B + barriers 64 B = 164,928 B.  The
+//     same in every mode.
 //
-// The wrapper (ops/cuda_mps.py) makes that layout; nothing else needs D to
-// be aligned.
+// The wrappers (ops/cuda_mps.py, ops/cuda_epilogue.py) make that layout
+// through one helper (cuda_mps.tc_operands); nothing else needs D to be
+// aligned.
 
 #include "tc_common.cuh"
 
@@ -75,6 +92,17 @@ constexpr int kSmemLimit = 232448;
 
 constexpr int kWPM = 4;                  // warps per m16 row tile
 constexpr int kThreads = 2 * kWPM * 32;  // two row tiles
+
+// What the chain ends with: the closed amplitude (#1), or the carry in
+// fp32 or bf16 (#2's acc_dtype)
+constexpr int kClose = 0, kCarryF32 = 1, kCarryBf16 = 2;
+
+// An elementwise result in the carry's type: bf16-rounded under kCarryBf16
+template <int kOut>
+__device__ __forceinline__ float in_carry(float v) {
+  if constexpr (kOut == kCarryBf16) return round_bf16(v);
+  return v;
+}
 
 // A ring slot holds one block (DP, core_ld(DP)) of a core: one physical
 // index of one site.  x is staged nx sites at a time, double-buffered, or
@@ -131,11 +159,13 @@ Plan plan_for(int phys, int dp) {
 // mbarrier, waited for before the k loop, whose loop has no branch, so ptxas
 // interleaves two physical indices' MMA chains.  Otherwise a unit is one
 // block, waited for (and its slot refilled) inside the loop.
-template <typename T, int DP, bool kWhole>
+// kOut: kClose writes amp (B,) fp32 to `out`; the carry modes write the
+// carry (B, D) in fp32 or bf16 (`right` and close_thr are not read).
+template <typename T, int DP, bool kWhole, int kOut>
 __global__ void __launch_bounds__(kThreads)
 mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
               const float* __restrict__ left, const float* __restrict__ right,
-              float* __restrict__ out_amp, float* __restrict__ out_log, int n_sites, int phys,
+              void* __restrict__ out, float* __restrict__ out_log, int n_sites, int phys,
               int bond, int batch, int blocks, int nx, float step_thr, float close_thr) {
   using Op = Tc<T>;
   constexpr int WPM = kWPM;
@@ -199,8 +229,9 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
   int next = slots;  // the next unit to start (the same count in every thread)
   if (nx) fetch_x(0);
 
-  // carry: fp32 in registers at this thread's C positions, the operand copy
-  // (rounded to T) in v_s for every row
+  // carry: in registers at this thread's C positions (fp32, holding bf16
+  // values under kCarryBf16), the operand copy (rounded to T) in v_s for
+  // every row; the carry modes' wrapper passes left already in both types
   float vcar[NT][4];
 #pragma unroll
   for (int c = 0; c < NT; ++c)
@@ -276,8 +307,8 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
           float u = big[0][c][e] + big[1][c][e];
           if (kSplit) u += small[0][c][e] + small[1][c][e];
           const float xv = kWhole || nx ? x_s[xo[e >> 1] + k] : x[xg[e >> 1] + k];
-          const float p = __fmul_rn(u, xv);
-          vn[c][e] = k == 0 ? p : __fadd_rn(vn[c][e], p);
+          const float p = in_carry<kOut>(__fmul_rn(in_carry<kOut>(u), in_carry<kOut>(xv)));
+          vn[c][e] = k == 0 ? p : in_carry<kOut>(__fadd_rn(vn[c][e], p));
         }
       // a ring shorter than one site: refill block j's slot before this
       // site needs block j + slots
@@ -312,7 +343,9 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
       float total_h = parts[0];
 #pragma unroll
       for (int w = 1; w < WPM; ++w) total_h += parts[w];
-      const float mean = __fdiv_rn(total_h, (float)bond);
+      // under a bf16 carry the whole row's fp32 sum is rounded once, as a
+      // bf16 sum reduces; mean and step_thr are then both bf16 values
+      const float mean = in_carry<kOut>(__fdiv_rn(in_carry<kOut>(total_h), (float)bond));
       safe[h] = mean > step_thr ? mean : 1.f;
       log_acc[h] += logf(safe[h]);
     }
@@ -320,107 +353,142 @@ mps_tc_kernel(const T* __restrict__ cores, const float* __restrict__ x,
     for (int c = 0; c < NT; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        vcar[c][e] = __fdiv_rn(vn[c][e], safe[e >> 1]);
+        vcar[c][e] = in_carry<kOut>(__fdiv_rn(vn[c][e], safe[e >> 1]));
         v_s[rloc[e >> 1] * L.v_ld + jbase + 8 * c + 2 * t + (e & 1)] = as_operand<T>(vcar[c][e]);
       }
   }
   cp_async_wait(0);
 
-  // close: amp = v . r, then the |amp| rescale
-  float part[2] = {0.f, 0.f};
+  if constexpr (kOut != kClose) {
+    // the carry (B, D) in its type from the C positions, rows past batch and
+    // columns past D dropped; one thread a row writes the log
 #pragma unroll
-  for (int c = 0; c < NT; ++c)
+    for (int c = 0; c < NT; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = jbase + 8 * c + 2 * t + (e & 1);
-      if (j < bond) part[e >> 1] = fmaf(vcar[c][e], right[j], part[e >> 1]);
+      for (int e = 0; e < 4; ++e) {
+        const int b = row0 + rloc[e >> 1], j = jbase + 8 * c + 2 * t + (e & 1);
+        if (b >= batch || j >= bond) continue;
+        const size_t o = (size_t)b * bond + j;
+        if constexpr (kOut == kCarryBf16)
+          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(vcar[c][e]);
+        else
+          static_cast<float*>(out)[o] = vcar[c][e];
+      }
+    if (ng == 0 && t == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (row0 + rloc[h] < batch) out_log[row0 + rloc[h]] = log_acc[h];
     }
-  __syncthreads();  // every read of the last site's partials is done
+  } else {
+    // close: amp = v . r, then the |amp| rescale
+    float part[2] = {0.f, 0.f};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
-    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
-    if (t == 0) red_s[rloc[h] * WPM + ng] = part[h];
-  }
-  __syncthreads();
-  if (ng == 0 && t == 0) {
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = jbase + 8 * c + 2 * t + (e & 1);
+        if (j < bond) part[e >> 1] = fmaf(vcar[c][e], right[j], part[e >> 1]);
+      }
+    __syncthreads();  // every read of the last site's partials is done
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int b = row0 + rloc[h];
-      if (b >= batch) continue;
-      const float* parts = red_s + rloc[h] * WPM;
-      float s = parts[0];
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+      if (t == 0) red_s[rloc[h] * WPM + ng] = part[h];
+    }
+    __syncthreads();
+    if (ng == 0 && t == 0) {
 #pragma unroll
-      for (int w = 1; w < WPM; ++w) s += parts[w];
-      const float mag = fabsf(s);
-      const float sf = mag > close_thr ? mag : 1.f;
-      out_amp[b] = __fdiv_rn(s, sf);
-      out_log[b] = log_acc[h] + logf(sf);
+      for (int h = 0; h < 2; ++h) {
+        const int b = row0 + rloc[h];
+        if (b >= batch) continue;
+        const float* parts = red_s + rloc[h] * WPM;
+        float s = parts[0];
+#pragma unroll
+        for (int w = 1; w < WPM; ++w) s += parts[w];
+        const float mag = fabsf(s);
+        const float sf = mag > close_thr ? mag : 1.f;
+        static_cast<float*>(out)[b] = __fdiv_rn(s, sf);
+        out_log[b] = log_acc[h] + logf(sf);
+      }
     }
   }
 }
 
-template <typename T, int DP, bool kWhole>
-int launch_plan(const void* cores, const float* x, const float* left, const float* right,
-                float* amp, float* log_out, int n_sites, int phys, int bond, int batch,
-                float step_thr, float close_thr, cudaStream_t stream) {
-  const Plan p = plan_for<T>(phys, DP);
-  const int smem = make_layout<T>(phys, DP, p.blocks, p.nx).total;
-  auto kernel = mps_tc_kernel<T, DP, kWhole>;
+// A launch's operands, as the C entry points receive them
+struct Args {
+  const void* cores;
+  const float *x, *left, *right;
+  void* out;
+  float* log_out;
+  int n_sites, phys, bond, batch;
+  float step_thr, close_thr;
+};
+
+template <typename T, int DP, bool kWhole, int kOut>
+int launch_plan(const Args& a, const Plan& p, cudaStream_t stream) {
+  const int smem = make_layout<T>(a.phys, DP, p.blocks, p.nx).total;
+  auto kernel = mps_tc_kernel<T, DP, kWhole, kOut>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (batch + kRows - 1) / kRows;
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(cores), x, left, right, amp,
-                                           log_out, n_sites, phys, bond, batch, p.blocks, p.nx,
-                                           step_thr, close_thr);
+  const int grid = (a.batch + kRows - 1) / kRows;
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(a.cores), a.x, a.left, a.right,
+                                           a.out, a.log_out, a.n_sites, a.phys, a.bond, a.batch,
+                                           p.blocks, p.nx, a.step_thr, a.close_thr);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
-int launch(const void* cores, const float* x, const float* left, const float* right, float* amp,
-           float* log_out, int n_sites, int phys, int bond, int batch, float step_thr,
-           float close_thr, cudaStream_t stream) {
-  const Plan p = plan_for<T>(phys, DP);
+template <typename T, int DP, int kOut>
+int launch(const Args& a, cudaStream_t stream) {
+  const Plan p = plan_for<T>(a.phys, DP);
   if (p.blocks == 0) return (int)cudaErrorInvalidValue;
-  auto run = p.whole ? launch_plan<T, DP, true> : launch_plan<T, DP, false>;
-  return run(cores, x, left, right, amp, log_out, n_sites, phys, bond, batch, step_thr, close_thr,
-             stream);
+  return p.whole ? launch_plan<T, DP, true, kOut>(a, p, stream)
+                 : launch_plan<T, DP, false, kOut>(a, p, stream);
 }
 
 int padded_bond(int bond) { return bond <= 32 ? 32 : bond <= 64 ? 64 : 128; }
 
-template <typename T>
-int dispatch(const void* cores, const float* x, const float* left, const float* right, float* amp,
-             float* log_out, int n_sites, int phys, int bond, int batch, float step_thr,
-             float close_thr, cudaStream_t stream) {
-#define CN_LAUNCH(DP)                                                                         \
-  return launch<T, DP>(cores, x, left, right, amp, log_out, n_sites, phys, bond, batch, step_thr, \
-                       close_thr, stream)
-  switch (padded_bond(bond)) {
-    case 32: CN_LAUNCH(32);
-    case 64: CN_LAUNCH(64);
-    default: if (bond <= 128) CN_LAUNCH(128);
+template <typename T, int kOut>
+int dispatch(const Args& a, cudaStream_t stream) {
+  switch (padded_bond(a.bond)) {
+    case 32: return launch<T, 32, kOut>(a, stream);
+    case 64: return launch<T, 64, kOut>(a, stream);
+    default: if (a.bond <= 128) return launch<T, 128, kOut>(a, stream);
   }
-#undef CN_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+template <int kOut>
+int dispatch_type(const Args& a, int cores_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return cores_bf16 ? dispatch<__nv_bfloat16, kOut>(a, s) : dispatch<float, kOut>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// cores laid out as (N, d, DP, LD), fp32 or bf16, zero beyond (d, D, D), with
-// DP = cn_mps_core_rows(D) and LD = cn_mps_core_ld(D); x (B, N, d) fp32;
-// left/right (D,) fp32.  Writes amp and log (B,) fp32.
+// Kernel #1.  cores laid out as (N, d, DP, LD), fp32 or bf16, zero beyond
+// (d, D, D), with DP = cn_mps_core_rows(D) and LD = cn_mps_core_ld(D); x
+// (B, N, d) fp32; left/right (D,) fp32.  Writes amp and log (B,) fp32.
 int cn_mps_evaluate(const void* cores, int cores_bf16, const float* x, const float* left,
                     const float* right, float* amp, float* log_out, int n_sites, int phys,
                     int bond, int batch, float step_thr, float close_thr, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cores_bf16)
-    return dispatch<__nv_bfloat16>(cores, x, left, right, amp, log_out, n_sites, phys, bond, batch,
-                                   step_thr, close_thr, s);
-  return dispatch<float>(cores, x, left, right, amp, log_out, n_sites, phys, bond, batch, step_thr,
-                         close_thr, s);
+  const Args a = {cores, x, left, right, amp, log_out, n_sites, phys, bond, batch, step_thr,
+                  close_thr};
+  return dispatch_type<kClose>(a, cores_bf16, stream);
+}
+
+// Kernel #2.  cores, x as for cn_mps_evaluate; left (D,) fp32, already cast
+// to the core type and the carry type.  Writes the carry v_out (B, D) in fp32
+// (carry_bf16 = 0) or bf16 (carry_bf16 = 1) and log (B,) fp32.
+int cn_mps_epilogue(const void* cores, int cores_bf16, const float* x, const float* left,
+                    void* v_out, int carry_bf16, float* log_out, int n_sites, int phys, int bond,
+                    int batch, float step_thr, void* stream) {
+  const Args a = {cores, x, left, nullptr, v_out, log_out, n_sites, phys, bond, batch, step_thr,
+                  0.f};
+  return carry_bf16 ? dispatch_type<kCarryBf16>(a, cores_bf16, stream)
+                    : dispatch_type<kCarryF32>(a, cores_bf16, stream);
 }
 
 // DP, the rows of each (DP, LD) block of the core layout for bond D.
@@ -429,8 +497,9 @@ int cn_mps_core_rows(int bond) { return padded_bond(bond); }
 // LD, the row length (elements) of each block of the core layout for bond D.
 int cn_mps_core_ld(int bond) { return core_ld(padded_bond(bond)); }
 
-// Dynamic shared memory of one CTA for these operands (bytes), or -1 when the
-// bond exceeds 128 or not even one ring slot fits the per-block limit.
+// Dynamic shared memory of one CTA for these operands (bytes), the same for
+// both entries, or -1 when the bond exceeds 128 or not even one ring slot
+// fits the per-block limit.
 int cn_mps_evaluate_smem(int cores_bf16, int phys, int bond) {
   if (bond > 128) return -1;
   const int dp = padded_bond(bond);

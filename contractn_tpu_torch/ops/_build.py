@@ -20,7 +20,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("mps_chain", "mps_chain_tc", "mpo_env")
+SOURCES = ("mps_chain_tc", "mpo_env")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may opt in to (sm_90)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

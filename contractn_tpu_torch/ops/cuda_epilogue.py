@@ -2,10 +2,11 @@
 
 Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_epilogue.py``
 (``mps_evaluate_epilogue`` -> ``_kernel``).  The CUDA source is
-``csrc/mps_chain.cu`` (entry ``cn_mps_epilogue``), the fp32-FMA design: one
-CTA per 32-row batch tile loops over every site with the carry on chip.  It
-walks the same chain as :mod:`.cuda_mps` (whose kernel runs on the tensor
-cores, ``csrc/mps_chain_tc.cu``).  What differs, as in the Pallas kernel it
+``csrc/mps_chain_tc.cu`` (entry ``cn_mps_epilogue``): the tensor-core chain
+kernel of :mod:`.cuda_mps` in its carry modes, on the same core layout
+(:func:`.cuda_mps.tc_operands`).  One CTA per 32-row batch tile walks every
+site with the carry on chip, each site's GEMM on ``mma.sync`` and the
+coming cores fetched by the TMA.  What differs, as in the Pallas kernel it
 replaces:
 
 * the carry is ``acc_dtype`` (float32 or bfloat16) and starts from
@@ -26,13 +27,7 @@ stays.
 import torch
 
 from . import _build
-from .cuda_mps import (
-    check_chain_args,
-    check_cuda_chain,
-    f32,
-    f32_input,
-    library,
-)
+from .cuda_mps import check_chain_args, f32, f32_input, tc_operands
 from .stabilize import MIN_NORM
 
 
@@ -75,7 +70,7 @@ def epilogue_chain(cores, left, x, acc_dtype=None):
         return epilogue_chain_plain(cores, left, x, acc)
     if cores.device.type != "cuda":
         raise ValueError(f"unsupported device {cores.device}")
-    check_cuda_chain(cores, (left, x), bond, phys)
+    lib, bf16, cores_k = tc_operands(cores, (left, x), phys, bond)
     xf = f32_input(x)
     left_f = left.to(cores.dtype).to(acc).float().contiguous()
     v = torch.empty(batch, bond, dtype=acc, device=cores.device)
@@ -83,10 +78,9 @@ def epilogue_chain(cores, left, x, acc_dtype=None):
     # the guard compares in the carry dtype, as torch and XLA both do
     thr = MIN_NORM if acc == torch.float32 else float(
         torch.tensor(MIN_NORM, dtype=torch.bfloat16).float())
-    lib = library()
     with torch.cuda.device(cores.device):
         rc = lib.cn_mps_epilogue(
-            cores.data_ptr(), int(cores.dtype == torch.bfloat16), xf.data_ptr(),
+            cores_k.data_ptr(), bf16, xf.data_ptr(),
             left_f.data_ptr(), v.data_ptr(), int(acc == torch.bfloat16),
             log.data_ptr(), n_sites, phys, bond, batch, f32(thr),
             _build.stream_of(cores),

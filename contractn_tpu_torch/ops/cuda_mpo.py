@@ -12,9 +12,15 @@ shared memory, the ket and bra GEMMs on ``mma.sync``, the channel mix in
 place between them, and the next site's core fetched by the TMA
 (``cp.async.bulk``, one copy a row) into a second buffer while this one
 computes.  A bond whose rows are not a whole number of 16-byte copies is
-zero-padded here first (:func:`aligned_bond`).  The kernel takes D <= 64,
-d*W <= 16 and W <= 8 at D > 32, within its shared memory
-(``cn_mpo_env_smem``); other shapes raise ``ValueError``.
+zero-padded here first (:func:`aligned_bond`).  That tensor-core path takes
+D <= 64, d*W <= 16 and W <= 8 at D > 32, within its shared memory.  Where
+its padded tiles do not fit (33 <= D <= 64 with many ket blocks, such as
+d = 2 with W = 6..8 or d = 1 with W = 9..16), the same source's exact-D
+kernel runs instead: fp32 FMA on operands held at exactly D, the design
+that first ported this kernel.  The library decides which, from the shape
+and before the launch (``cn_mpo_env_path``); each path counts its launches
+in ``mpo_env.launches_by_path``.  Shapes neither holds (D > 64, d*W > 16,
+or too large for shared memory) raise ``ValueError``.
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 per site, ``d`` ket GEMMs ``(W D, D) x (D, D)`` with the environment cast to
@@ -44,8 +50,11 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_float, ctypes.c_void_p,
     ],
+    "cn_mpo_env_path": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "cn_mpo_env_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 }
+# cn_mpo_env_path's answer: the kernel that takes a shape, or None
+PATHS = (None, "tensor_core", "exact")
 
 MAX_BOND = 64  # widest bond the environment kernel takes
 MAX_MIX = 16   # largest d * W the kernel's channel mix holds in registers
@@ -150,7 +159,8 @@ def _mix_matrix(entries, phys, wdim):
 
 def mpo_env(cores, env0, entries, wdim):
     """Launch wrapper: the environment kernel for CUDA tensors (counted in
-    ``mpo_env.launches``), :func:`mpo_env_plain` for CPU tensors."""
+    ``mpo_env.launches`` and, by path, ``mpo_env.launches_by_path``),
+    :func:`mpo_env_plain` for CPU tensors."""
     if cores.ndim != 5 or cores.shape[3] != cores.shape[4]:
         raise ValueError(f"cores must be (B, N, d, D, D), got {tuple(cores.shape)}")
     batch, n_sites, phys, bond, _ = cores.shape
@@ -172,21 +182,17 @@ def mpo_env(cores, env0, entries, wdim):
         raise ValueError("cores must be contiguous (B, N, d, D, D)")
     if env0.device != cores.device or env0.dtype != torch.float32:
         raise ValueError("env0 must be float32 on the cores' device")
-    if bond > MAX_BOND or phys * wdim > MAX_MIX:
-        raise ValueError(
-            f"the MPO kernel takes D <= {MAX_BOND} and d*W <= {MAX_MIX}; "
-            f"got D={bond}, d={phys}, W={wdim}"
-        )
     lib = library()
     bf16 = int(cores.dtype == torch.bfloat16)
-    smem = lib.cn_mpo_env_smem(bf16, phys, bond, wdim)
-    if smem < 0 or smem > _build.SMEM_LIMIT:
+    path = PATHS[lib.cn_mpo_env_path(bf16, phys, bond, wdim)]
+    if path is None:
         raise ValueError(
-            f"d={phys}, D={bond}, W={wdim} is outside the MPO kernel's reach "
-            f"(W <= 8 at D > 32, and {_build.SMEM_LIMIT} bytes of shared "
-            "memory per block)"
+            f"d={phys}, D={bond}, W={wdim} is outside the MPO kernel's reach: "
+            f"it takes D <= {MAX_BOND} and d*W <= {MAX_MIX}, within "
+            f"{_build.SMEM_LIMIT} bytes of shared memory per block (on the "
+            "exact-D path 4*(W*D*(D+1) + (d*W + d)*D*D + 8) bytes)"
         )
-    layout = aligned_bond(bond, cores.dtype)
+    layout = aligned_bond(bond, cores.dtype) if path == "tensor_core" else bond
     pad = layout - bond
     cores_k = aligned16(pad_bond(cores, pad, 2))
     env0_k = pad_bond(env0.reshape(wdim, bond, bond), pad, 2).contiguous()
@@ -204,6 +210,7 @@ def mpo_env(cores, env0, entries, wdim):
         )
     _build.check(rc, "cn_mpo_env")
     mpo_env.launches += 1
+    mpo_env.launches_by_path[path] += 1
     if pad:
         env = env.reshape(batch, wdim, layout, layout)[:, :, :bond, :bond]
         env = env.reshape(batch, wdim * bond, bond)
@@ -211,6 +218,7 @@ def mpo_env(cores, env0, entries, wdim):
 
 
 mpo_env.launches = 0
+mpo_env.launches_by_path = dict.fromkeys(PATHS[1:], 0)
 
 
 def make_mpo_cuda_fn(mpo, left, right):

@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_mps.py``
 (``pallas_mps_evaluate`` -> ``_mps_kernel``).  The CUDA source is
-``csrc/mps_chain_tc.cu`` (entry ``cn_mps_evaluate``); its header states the
+``csrc/mps_chain_tc.cu`` (entry ``cn_mps_evaluate``, the close mode of the
+template that also serves :mod:`.cuda_epilogue`); its header states the
 bound on an H100 (the chain's ``2*B*N*d*D^2`` GEMM FLOPs run as 3xTF32 on the
 tensor cores for fp32 cores, one bf16 pass for bf16) and the design: one CTA
 per 32-row batch tile walks every site with the fp32 carry on chip, each
@@ -12,7 +13,8 @@ shared-memory slots while the current site computes.  For those single
 copies the wrapper lays the cores out as ``(N, d, DP, LD)``, zero-padded,
 with ``DP`` and ``LD`` from the library (``cn_mps_core_rows``,
 ``cn_mps_core_ld``): the shared-memory layout the kernel reads without bank
-conflicts.  That copy is made on every call.
+conflicts.  That copy is made on every call (:func:`tc_operands`, shared with
+:mod:`.cuda_epilogue`).
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 
@@ -39,21 +41,18 @@ import torch
 from . import _build
 from .stabilize import MIN_NORM
 
-_SIGNATURES = {
-    "cn_mps_epilogue": [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p,
-    ],
-}
-
 _TC_SIGNATURES = {
     "cn_mps_evaluate": [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_float, ctypes.c_void_p,
+    ],
+    "cn_mps_epilogue": [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p,
     ],
     "cn_mps_core_rows": [ctypes.c_int],
     "cn_mps_core_ld": [ctypes.c_int],
@@ -63,13 +62,8 @@ _TC_SIGNATURES = {
 MAX_BOND = 128  # widest bond the chain kernels take
 
 
-def library():
-    """The built ``csrc/mps_chain.cu`` library (kernel #2, cuda_epilogue)."""
-    return _build.load("mps_chain", _SIGNATURES)
-
-
 def tc_library():
-    """The built ``csrc/mps_chain_tc.cu`` library (kernel #1)."""
+    """The built ``csrc/mps_chain_tc.cu`` library (kernels #1 and #2)."""
     return _build.load("mps_chain_tc", _TC_SIGNATURES)
 
 
@@ -95,11 +89,14 @@ def check_chain_args(cores, left, right, x):
     return n_sites, phys, bond, x.shape[0]
 
 
-def check_cuda_chain(cores, tensors, bond, phys, smem=None):
-    """Device, dtype, layout and size checks before a CUDA launch.
+def tc_operands(cores, tensors, phys, bond):
+    """Checks and core layout before a launch of the tensor-core chain
+    kernels (#1 and #2): returns ``(library, bf16 flag, cores laid out)``.
 
-    ``smem`` is the kernel's shared memory per block in bytes (negative when
-    no layout fits), defaulting to that of the FMA chain kernel (#2).
+    Raises on a dtype, device, layout or size the kernels do not take.  The
+    cores are zero-padded to ``(N, d, DP, LD)`` with ``DP`` and ``LD`` from
+    the library, the layout the kernel copies into shared memory one block
+    at a time; the copy is made on every call.
     """
     if cores.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(
@@ -112,13 +109,16 @@ def check_cuda_chain(cores, tensors, bond, phys, smem=None):
         raise ValueError("cores must be contiguous (N, d, D, D)")
     if bond > MAX_BOND:
         raise ValueError(f"CUDA MPS kernels take bond <= {MAX_BOND}, got {bond}")
-    if smem is None:
-        smem = 4 * (phys * bond * bond + 32 * (bond + 1) + 32 * phys)
+    lib = tc_library()
+    bf16 = int(cores.dtype == torch.bfloat16)
+    smem = lib.cn_mps_evaluate_smem(bf16, phys, bond)
     if smem < 0 or smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"d={phys}, D={bond} needs {smem} bytes of shared memory per block "
             f"(limit {_build.SMEM_LIMIT})"
         )
+    rows, ld = lib.cn_mps_core_rows(bond), lib.cn_mps_core_ld(bond)
+    return lib, bf16, torch.nn.functional.pad(cores, (0, ld - bond, 0, rows - bond))
 
 
 def f32_input(x):
@@ -174,13 +174,8 @@ def cuda_mps_evaluate(cores, left, right, x):
         return mps_evaluate_plain(cores, left, right, x)
     if cores.device.type != "cuda":
         raise ValueError(f"unsupported device {cores.device}")
-    lib = tc_library()
-    bf16 = int(cores.dtype == torch.bfloat16)
-    check_cuda_chain(cores, (left, right, x), bond, phys,
-                     smem=lib.cn_mps_evaluate_smem(bf16, phys, bond))
+    lib, bf16, cores_k = tc_operands(cores, (left, right, x), phys, bond)
     xf = f32_input(x)
-    rows, ld = lib.cn_mps_core_rows(bond), lib.cn_mps_core_ld(bond)
-    cores_k = torch.nn.functional.pad(cores, (0, ld - bond, 0, rows - bond))
     left_f = left.to(torch.float32).contiguous()
     right_f = right.to(torch.float32).contiguous()
     amp = torch.empty(batch, dtype=torch.float32, device=cores.device)

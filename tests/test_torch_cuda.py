@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
-from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
+from contractn_tpu_torch.ops import cuda_mpo
 
 
 @pytest.fixture
@@ -26,42 +26,24 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chain_kernels_match_plain_on_gpu(cuda_device, dtype):
-    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
+    # #1, and #2 under a float32 and a bfloat16 carry, each launched once
     shape = {"n_sites": 40, "phys": 2, "bond": 64, "batch": 100}
-    cores, left, right, x = chip_smoke.mps_inputs(shape, cuda_device, dtype, seed=5)
-    cond = chip_smoke.mps_condition(cores, left, right, x)
-    before = cuda_mps.cuda_mps_evaluate.launches
-    chip_smoke.compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
-                             cuda_mps.mps_evaluate_plain(cores, left, right, x),
-                             tol, "mps_evaluate", cond)
-    assert cuda_mps.cuda_mps_evaluate.launches == before + 1
-    for acc in (torch.float32, torch.bfloat16):
-        v_got, l_got = cuda_epilogue.epilogue_chain(cores, left, x, acc)
-        v_ref, l_ref = cuda_epilogue.epilogue_chain_plain(cores, left, x, acc)
-        chip_smoke.compare_split((v_got.float() @ right, l_got),
-                                 (v_ref.float() @ right, l_ref),
-                                 max(tol, chip_smoke.TOL_F32 if acc == torch.float32
-                                     else chip_smoke.TOL_BF16), "epilogue_chain", cond)
+    chip_smoke.compare_chains(shape, cuda_device, dtype, "D=64", seed=5)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chain_kernel_pads_an_unaligned_bond_on_gpu(cuda_device, dtype):
     # D = 20 fills neither a 32-wide tile nor a 16-byte row of bf16: the
-    # wrapper's zero-padded layout carries both
-    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
-    shape = {"n_sites": 9, "phys": 2, "bond": 20, "batch": 33}
-    cores, left, right, x = chip_smoke.mps_inputs(shape, cuda_device, dtype, seed=7)
-    chip_smoke.compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
-                             cuda_mps.mps_evaluate_plain(cores, left, right, x),
-                             tol, "mps_evaluate D=20",
-                             chip_smoke.mps_condition(cores, left, right, x))
+    # wrappers' zero-padded layout carries both
+    chip_smoke.compare_chains(chip_smoke.UNALIGNED_MPS, cuda_device, dtype, "D=20", seed=7)
 
 
-# TFIM at three bonds, then the edges of the kernel's reach: Heisenberg (W 5)
-# at D <= 32 and D = 48, W 1, 2 and 4 at D = 64, W 8
+# TFIM at three bonds, then the edges of the tensor-core path's reach:
+# Heisenberg (W 5) at D <= 32 and D = 48, W 1, 2 and 4 at D = 64, W 8; then
+# two shapes only the exact-D path takes
 MPO_SHAPES = [{"n_sites": 8, "bond": bond, "batch": 12} for bond in (32, 48, 20)]
-MPO_SHAPES += chip_smoke.REACH_MPO
+MPO_SHAPES += chip_smoke.REACH_MPO + chip_smoke.EXACT_MPO
 
 
 @pytest.mark.cuda
@@ -80,20 +62,17 @@ def test_mpo_kernel_matches_plain_on_gpu(cuda_device, dtype, shape):
 @pytest.mark.parametrize("phys,bond", [(3, 96), (3, 128), (20, 24), (900, 4)])
 def test_chain_kernel_reach_on_gpu(cuda_device, dtype, phys, bond):
     # d = 3 at D > 64 (fp32) and d = 20 run a core ring shorter than one
-    # site; d = 900 reads x in place
-    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
+    # site; d = 900 reads x in place; #1 and #2 alike
     shape = {"n_sites": 7, "phys": phys, "bond": bond, "batch": 40}
-    cores, left, right, x = chip_smoke.mps_inputs(shape, cuda_device, dtype, seed=9)
-    chip_smoke.compare_split(cuda_mps.cuda_mps_evaluate(cores, left, right, x),
-                             cuda_mps.mps_evaluate_plain(cores, left, right, x),
-                             tol, f"mps_evaluate d={phys} D={bond}",
-                             chip_smoke.mps_condition(cores, left, right, x))
+    chip_smoke.compare_chains(shape, cuda_device, dtype, f"d={phys} D={bond}", seed=9)
 
 
 @pytest.mark.cuda
-def test_mpo_kernel_refuses_shapes_out_of_reach_on_gpu(cuda_device):
-    # W = 9 at D > 32 has more bra tiles than a warp keeps
-    cores = torch.zeros((2, 3, 1, 40, 40), device=cuda_device)
-    env0 = torch.zeros((9 * 40, 40), device=cuda_device)
+@pytest.mark.parametrize("phys,bond,wdim", [(1, 65, 3), (1, 40, 17), (2, 64, 8)])
+def test_mpo_kernel_refuses_shapes_out_of_reach_on_gpu(cuda_device, phys, bond, wdim):
+    # D > 64, d*W > 16, and d = 2, W = 8 at D = 64, which fits neither
+    # path's shared memory
+    cores = torch.zeros((2, 3, phys, bond, bond), device=cuda_device)
+    env0 = torch.zeros((wdim * bond, bond), device=cuda_device)
     with pytest.raises(ValueError, match="outside the MPO kernel's reach"):
-        cuda_mpo.mpo_env(cores, env0, (), 9)
+        cuda_mpo.mpo_env(cores, env0, (), wdim)

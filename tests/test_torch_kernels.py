@@ -117,6 +117,30 @@ def test_epilogue_plain_bf16_carry_tracks_pallas():
     np.testing.assert_allclose(got_log, ref_log, atol=0.1)
 
 
+@pytest.mark.parametrize("acc", ["float32", "bfloat16"])
+def test_epilogue_plain_bf16_cores_match_pallas(acc):
+    # bf16 cores: the carry starts from left cast to bf16, the GEMM takes bf16
+    # operands.  Under the fp32 carry the float32 chains agree to rounding
+    # order and both round the amplitude to the same bf16 value on these
+    # inputs: rtol 1e-5 x condition as in fp32; the bf16 carry's log is held
+    # to the tolerance of the test above
+    cores, left, right, x = _arrays(12, 2, 8, 16, seed=11, scale=1 / 4.0)
+    jb, tb = jnp.bfloat16, torch.bfloat16
+    ref = j_epilogue(jnp.asarray(cores).astype(jb), *(jnp.asarray(a) for a in (left, right, x)),
+                     interpret=True, acc_dtype=getattr(jnp, acc))
+    got = cuda_epilogue.mps_evaluate_epilogue(_t(cores).to(tb), _t(left), _t(right), _t(x),
+                                              acc_dtype=getattr(torch, acc))
+    assert got[0].dtype == tb and got[1].dtype == torch.float32
+    if acc == "float32":
+        cond = _close_condition(_t(cores).to(tb), _t(left), _t(right), _t(x))
+        _assert_split_close((got[0].float(), got[1]), (np.asarray(ref[0], np.float32), ref[1]),
+                            RTOL, cond)
+    else:
+        got_log = np.log(np.abs(got[0].float().numpy())) + got[1].numpy()
+        ref_log = np.log(np.abs(np.asarray(ref[0], np.float32))) + np.asarray(ref[1])
+        np.testing.assert_allclose(got_log, ref_log, atol=0.1)
+
+
 def _mpo_close_condition(mpo, cores, boundary):
     """Condition number of the close ``sum env[w,i,k] R[w] r[i] r[k]``."""
     wdim, bond = mpo.cores.shape[3], boundary.shape[0]
@@ -144,6 +168,27 @@ def test_mpo_plain_matches_pallas(n, bond, batch):
                                         _t(cores), _t(ones), _t(ones))
     assert cuda_mpo.mpo_env.launches == before
     mpo = tfim_mpo(n, dtype=torch.float32, device="cpu")
+    _assert_split_close(got, ref, RTOL, _mpo_close_condition(mpo, _t(cores), _t(ones)))
+
+
+def test_mpo_plain_matches_pallas_uniform_w6():
+    # a dense uniform MPO with d = 2, W = 6 from numpy (the channel mix sums
+    # up to d*W = 12 blocks per output): the plain version is what the card
+    # holds both MPO kernel paths against
+    n, bond, batch, wdim = 4, 6, 4, 6
+    rng = np.random.default_rng(12)
+    core = (rng.standard_normal((2, 2, wdim, wdim)) / np.sqrt(2 * wdim)).astype(np.float32)
+    w = np.broadcast_to(core, (n, 2, 2, wdim, wdim)).copy()
+    ends = (0.5 + rng.random((2, wdim))).astype(np.float32)
+    cores, ones = _mpo_arrays(n, bond, batch, seed=13)
+    ref = mpo_expectation_pallas(JMPO(jnp.asarray(w), jnp.asarray(ends[0]), jnp.asarray(ends[1])),
+                                 jnp.asarray(cores), jnp.asarray(ones), jnp.asarray(ones),
+                                 btile=2, interpret=True)
+    mpo = mpo_from_numpy(w, ends[0], ends[1], device="cpu")
+    assert len(cuda_mpo.mpo_entries(mpo)) == 2 * 2 * wdim * wdim
+    before = cuda_mpo.mpo_env.launches
+    got = cuda_mpo.mpo_expectation_cuda(mpo, _t(cores), _t(ones), _t(ones))
+    assert cuda_mpo.mpo_env.launches == before
     _assert_split_close(got, ref, RTOL, _mpo_close_condition(mpo, _t(cores), _t(ones)))
 
 
