@@ -29,7 +29,15 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
 5. times: each kernel and its plain version with CUDA events (median of 7
    after a warm-up), beside the least time the card could take for
    fp32-accurate work (GEMMs as 3xTF32 on the tensor cores): #2 under both
-   carries, and #3's exact-D path at a restored shape.
+   carries, and #3's exact-D path at a restored shape;
+6. training paths at the JAX package's published widths: 3 log-MSE SGD
+   steps (``make_train_step``) at 512 sites x d 2 x bond 64 x batch 1024 in
+   bfloat16 and float32, the float32 step-0 gradient against float64, the
+   trained MPS served under ``torch.no_grad()`` through #1 and held against
+   the differentiable loop, one step at 511 sites (one site a step), 10
+   Born-machine Adam steps at 64 sites x bond 64 x batch 4096, 4096 exact
+   samples from the trained model, and a CP fit through ``fit_tn``; no
+   training step may launch a hand kernel (they have no backward).
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -77,6 +85,24 @@ EXACT_MPO = (
     {"n_sites": 5, "bond": 55, "batch": 16, "mpo": (1, 9), "path": "exact"},
 )
 EXACT_BENCH = {"n_sites": 50, "bond": 50, "batch": 1000, "mpo": (2, 7)}
+# Training paths at the JAX package's published widths: the log-MSE SGD step
+# (bench.py:224-267) and the Born machine's exact-NLL Adam step
+# (bench.py:270-300); 511 sites is the odd length whose loss runs one site a
+# step, the case that once took the kernel and lost its gradient
+TRAIN = {"n_sites": 512, "phys": 2, "bond": 64, "batch": 1024, "steps": 3, "lr": 1e-3}
+TRAIN_ODD_SITES = 511
+BORN = {"n_sites": 64, "bond": 64, "batch": 4096, "steps": 10, "lr": 1e-3}
+FIT_TN_STEPS = 60
+
+# Relative Frobenius error of the step-0 float32 gradient against the float64
+# gradient of the same loss on the same (float32) parameters, over the samples
+# whose log|psi| is determined at float32 (see grad_check, PERF.md)
+TOL_GRAD = 1e-3
+# |sampler log p - mps_log_prob| on the same samples: two float32 chains in
+# two gauges (right-canonical and as trained) over 64 sites, each rounding at
+# about 1e-7 of |log p| ~ 44 nats per site
+TOL_LOGP_F32 = 2e-3
+TOL_LOGP_F64 = 1e-9
 
 # Agreement of log|psi| between a kernel and its plain version, scaled by
 # each sample's condition number (see mps_condition, condition, PERF.md)
@@ -548,6 +574,189 @@ def _check_reference(what, got, ref, batch, cond):
                   f"{what} ({batch} finite) vs float64", cond)
 
 
+def training_paths(device, smi, train=TRAIN, odd_sites=TRAIN_ODD_SITES, born=BORN,
+                   fit_steps=FIT_TN_STEPS, check=16):
+    """The training paths through the user entry points; returns
+    ``{path: (counts, seconds)}``.
+
+    Each path runs with every launch count zeroed just before it and read
+    just after: no training step may launch a hand kernel (they have no
+    backward), and serving the trained MPS under ``torch.no_grad()`` must
+    launch #1.  Per-step host-clock times end in a synchronize.
+    """
+    from contractn_tpu_torch import TN
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.models.born import (
+        born_machine, born_nll, fit_born_machine, mps_log_prob)
+    from contractn_tpu_torch.models.sampling import sample
+    from contractn_tpu_torch.ops.scan import mps_evaluate_auto
+    from contractn_tpu_torch.parallel import fit_tn, make_train_step
+
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def drive(name, fn):
+        reset_counters()
+        out, secs = timed(fn)
+        runs[name] = (read_counters(), secs)
+        return out
+
+    n, d, bond, batch = (train[k] for k in ("n_sites", "phys", "bond", "batch"))
+    step = make_train_step(lr=train["lr"])
+
+    def train_steps(mps, x, y, tag):
+        losses = []
+        for i in range(train["steps"]):
+            (mps, loss), secs = timed(lambda: step(mps, x, y))
+            losses.append(float(loss))
+            log(f"  train {tag} step {i}: {1e3 * secs:.1f} ms, loss {losses[-1]:.6g} ({smi})")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train {tag}: non-finite loss {losses}")
+        return mps
+
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        gen = torch.Generator(device=device).manual_seed(11)
+        mps = MPS.random(n, d, bond, dtype=dtype, generator=gen, device=device)
+        x = torch.randn((batch, n, d), generator=gen, device=device).to(dtype)
+        y = torch.zeros((batch,), dtype=dtype, device=device)
+        if dtype == torch.float32:
+            grad_check(mps, x, y)
+        mps = drive(f"train_{tag}", lambda: train_steps(mps, x, y, tag))
+
+    # serving the trained float32 model: under no_grad, #1 once, held
+    # against the differentiable loop
+    amp, lg = drive("serve_trained", lambda: _no_grad(lambda: mps.evaluate(x)))
+    assert amp.shape == (batch,) and bool(torch.isfinite(amp).all() and torch.isfinite(lg).all())
+    ref = _no_grad(lambda: mps_evaluate_auto(mps.cores, mps.left, mps.right, x[:check]))
+    compare_split((amp[:check], lg[:check]), ref, TOL_F32,
+                  "trained MPS: #1 vs the differentiable loop",
+                  mps_condition(mps.cores, mps.left, mps.right, x[:check]))
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    odd = MPS.random(odd_sites, d, bond, generator=gen, device=device)
+    x_odd = torch.randn((batch, odd_sites, d), generator=gen, device=device)
+    y_odd = torch.zeros((batch,), device=device)
+    new, loss = drive("train_odd", lambda: step(odd, x_odd, y_odd))
+    moved = float((new.cores - odd.cores).abs().max())
+    log(f"  train {odd_sites} sites, one site a step: {1e3 * runs['train_odd'][1]:.1f} ms, "
+        f"loss {float(loss):.6g}, largest update {moved:.3e} ({smi})")
+    if not (math.isfinite(float(loss)) and moved > 0):
+        raise AssertionError(f"{odd_sites}-site step: no gradient reached the cores")
+
+    nb, bb, batch_b, steps_b = (born[k] for k in ("n_sites", "bond", "batch", "steps"))
+    gen = torch.Generator(device=device).manual_seed(13)
+    model = born_machine(nb, 2, bb, dtype=torch.float32, generator=gen, device=device)
+    data = torch.randint(0, 2, (batch_b, nb), generator=gen, device=device)
+    nll0 = float(_no_grad(lambda: born_nll(model, data)))
+    model, losses = drive("born_fit", lambda: fit_born_machine(
+        model, data, steps=steps_b, lr=born["lr"]))
+    nll1 = float(_no_grad(lambda: born_nll(model, data)))
+    log(f"  Born fit {nb} x {bb} x {batch_b}: {steps_b} Adam steps in "
+        f"{runs['born_fit'][1]:.3f} s, the process's first; NLL {nll0:.6f} -> "
+        f"{nll1:.6f} ({smi})")
+    if not (bool(torch.isfinite(losses).all()) and nll1 < nll0):
+        raise AssertionError(f"Born fit: NLL {nll0} -> {nll1}, losses {losses.tolist()}")
+
+    def born_steps():  # one step a call, each timed: the steady state
+        secs = [timed(lambda: fit_born_machine(model, data, steps=1, lr=born["lr"]))[1]
+                for _ in range(3)]
+        log(f"  Born step {nb} x {bb} x {batch_b}, one fit_born_machine(steps=1) "
+            f"call each: {', '.join(f'{1e3 * t:.1f}' for t in secs)} ms ({smi})")
+
+    drive("born_step", born_steps)
+
+    samples, logp = drive("sample", lambda: sample(model, batch_b, generator=gen))
+    assert samples.shape == (batch_b, nb) and samples.device.type == device.type
+    err32 = float((logp - _no_grad(lambda: mps_log_prob(model, samples))).abs().max())
+    m64 = MPS(model.cores.double(), model.left.double(), model.right.double())
+    s64, logp64 = sample(m64, check, generator=gen)
+    err64 = float((logp64 - mps_log_prob(m64, s64)).abs().max())
+    log(f"  sample {batch_b} from the trained Born machine: {runs['sample'][1]:.3f} s "
+        f"({smi}); |log p - mps_log_prob| max {err32:.3e} in fp32 (tol {TOL_LOGP_F32}), "
+        f"{err64:.3e} in fp64 (tol {TOL_LOGP_F64})")
+    if err32 > TOL_LOGP_F32 or err64 > TOL_LOGP_F64:
+        raise AssertionError("sampler log p disagrees with mps_log_prob")
+
+    rng = torch.Generator().manual_seed(0)
+    factors = [torch.randn((2, 4), generator=rng, dtype=torch.float64) for _ in range(3)]
+    target = torch.einsum("ra,rb,rc->abc", *factors).to(device)
+    tn = TN()
+    hub = tn.add_copy_node(3, dim=3)
+    for i in range(3):
+        tn.connect_nodes(hub, tn.add_dense_node(
+            0.3 * torch.randn((3, 4), generator=rng, dtype=torch.float64)), i, 0)
+
+    def cp_loss(out, target):
+        mant, log_scale = out
+        return torch.mean((mant * torch.exp(log_scale) - target) ** 2)
+
+    trace = drive("fit_tn", lambda: fit_tn(
+        tn, lambda p: torch.optim.Adam(p, lr=0.05), cp_loss, steps=fit_steps,
+        batch=(target,), device=device))
+    devices = {p.device.type for p in tn.params}
+    log(f"  fit_tn CP: loss {trace[0]:.4g} -> {trace[-1]:.4g} in {fit_steps} Adam steps, "
+        f"{runs['fit_tn'][1]:.3f} s; node tensors on {sorted(devices)} ({smi})")
+    if not (trace[-1] < trace[0] and devices == {device.type}):
+        raise AssertionError("fit_tn did not train, or moved the node tensors")
+
+    for path, (counts, _) in runs.items():
+        # on the CPU (a rehearsal) the wrappers run their plain versions
+        want = int(path == "serve_trained" and device.type == "cuda")
+        if counts["mps_evaluate"] != want or any(
+                v for k, v in counts.items() if k != "mps_evaluate"):
+            raise AssertionError(f"path {path}: launches {counts}")
+    return runs
+
+
+def _no_grad(fn):
+    with torch.no_grad():
+        return fn()
+
+
+def grad_check(mps, x, y):
+    """The float32 gradient of the log-MSE loss against float64 on the same
+    parameters and data, as relative Frobenius error over cores, left and
+    right together.
+
+    As for log|psi| (``compare_split``), the check holds on the samples whose
+    log|psi| is determined at float32 precision (``TOL_F32 * cond <= 1``):
+    there it must stay within ``TOL_GRAD``.  The whole batch's error is
+    reported beside it; it is set by the worst-conditioned samples, whose
+    gradients (1/psi) are both the largest and the least accurate.
+    """
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.parallel import loss_fn
+
+    def rel_err(idx):
+        grads = {}
+        for dtype in (torch.float32, torch.float64):
+            params = [t.detach().to(dtype).requires_grad_(True)
+                      for t in (mps.cores, mps.left, mps.right)]
+            loss = loss_fn(MPS(*params), x[idx].to(dtype), y[idx].to(dtype))
+            grads[dtype] = torch.cat([g.reshape(-1)
+                                      for g in torch.autograd.grad(loss, params)])
+        g32, g64 = grads[torch.float32].double(), grads[torch.float64]
+        return float((g32 - g64).norm() / g64.norm())
+
+    cond = mps_condition(mps.cores, mps.left, mps.right, x)
+    keep = torch.nonzero(TOL_F32 * cond <= 1)[:, 0].to(x.device)
+    rel_all, rel = rel_err(torch.arange(x.shape[0], device=x.device)), rel_err(keep)
+    log(f"  step-0 gradient, fp32 vs fp64, relative Frobenius error: {rel:.3e} over the "
+        f"{keep.numel()}/{x.shape[0]} samples with {TOL_F32} x cond <= 1 (tol {TOL_GRAD}); "
+        f"{rel_all:.3e} over the whole batch (cond median {float(cond.median()):.3g}, "
+        f"max {float(cond.max()):.3g})")
+    if not rel <= TOL_GRAD:
+        raise AssertionError(f"fp32 gradient off by {rel:.3e} relative")
+    return rel
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -658,6 +867,9 @@ def main():
             "max_abs_err": errors[kernel], "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
+    log("== 6. training paths")
+    for path, (counts, secs) in training_paths(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s, launches {counts}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,37 @@
 """Standard Hamiltonians as MPOs.
 
-From ``contractn_tpu/models/dmrg.py`` only ``tfim_mpo`` and
-``heisenberg_mpo`` are ported so far; the DMRG solvers come in a later
-slice.
+From ``contractn_tpu/models/dmrg.py`` only ``tfim_mpo``,
+``heisenberg_mpo`` and ``_rebuild_uniform`` are ported so far; the DMRG
+solvers come in a later slice.
 """
 
 import numpy as np
 import torch
 
 from .mpo import _uniform_mpo
+from .mps import MPS
 
 _SX = np.array([[0.0, 1.0], [1.0, 0.0]])
 _SZ = np.array([[1.0, 0.0], [0.0, -1.0]])
 _SY_IM = np.array([[0.0, -1.0], [1.0, 0.0]])  # -i * sigma_y (real);
 # only ever used quadratically, where the overall sign cancels
 _ID = np.eye(2)
+
+
+def _rebuild_uniform(tensors, dtype):
+    """Uniform stacked MPS from ragged ``(d, Din, Dout)`` site tensors
+    (zero-padded bonds, ``e0`` boundaries), on the first tensor's device."""
+    n = len(tensors)
+    d = tensors[0].shape[0]
+    bond = max(max(t.shape[1], t.shape[2]) for t in tensors)
+    bond = max(bond, 1)
+    device = tensors[0].device
+    cores = torch.zeros((n, d, bond, bond), dtype=dtype, device=device)
+    for i, t in enumerate(tensors):
+        cores[i, :, :t.shape[1], :t.shape[2]] = t
+    e0 = torch.zeros((bond,), dtype=dtype, device=device)
+    e0[0] = 1.0
+    return MPS(cores, e0, e0.clone())
 
 
 def tfim_mpo(n_sites, j=1.0, h=1.0, dtype=torch.float64, device=None):

@@ -18,9 +18,9 @@ from ..ops.scan import (
     mps_evaluate_fused,
     mps_norm,
 )
-from ..ops.stabilize import destabilize
-from ..utils.device import real_dtype, resolve_device
-from ..utils.errors import TNError
+from ..ops.stabilize import destabilize, peinsum
+from ..utils.device import as_tensor, real_dtype, resolve_device
+from ..utils.errors import TNError, records_grad
 
 _KERNELS = ("auto", "scan", "cuda")
 
@@ -63,6 +63,50 @@ class MPS:
         return cls(cores, normal(bond_dim), normal(bond_dim))
 
     @classmethod
+    def from_dense(cls, vector, phys_dim, max_bond=None, cutoff=0.0,
+                   device=None):
+        """Encode a dense ``(phys_dim**n,)`` state as an MPS (exact unless
+        truncated by ``max_bond``/``cutoff``).
+
+        Sequential left-to-right SVD (the standard tensor-train
+        decomposition) with ``torch.linalg.svd``; returns the MPS in the
+        uniform stacked form.  Bond dimensions grow at most as
+        ``min(d^k, d^(n-k))``.  A torch ``vector`` keeps its device; a numpy
+        one goes to ``device`` (default ``cuda``).
+        """
+        device = resolve_device(device, (vector,))
+        vector = as_tensor(vector, device)
+        n = 0
+        size = vector.numel()
+        while phys_dim ** n < size:
+            n += 1
+        if phys_dim ** n != size:
+            raise ValueError(
+                f"Vector of size {size} is not phys_dim**n for "
+                f"phys_dim={phys_dim}"
+            )
+        from .dmrg import _rebuild_uniform
+
+        tensors = []
+        rest = vector.reshape(1, -1)
+        r_prev = 1
+        for _ in range(n - 1):
+            mat = rest.reshape(r_prev * phys_dim, -1)
+            u, s, vh = torch.linalg.svd(mat, full_matrices=False)
+            k = s.shape[0]
+            if max_bond is not None:
+                k = min(k, max_bond)
+            if cutoff > 0:
+                above = int((s > cutoff * s[0]).sum())
+                k = min(k, max(above, 1))
+            u, s, vh = u[:, :k], s[:k], vh[:k]
+            tensors.append(u.reshape(r_prev, phys_dim, k).permute(1, 0, 2))
+            rest = s[:, None] * vh
+            r_prev = k
+        tensors.append(rest.reshape(r_prev, phys_dim, 1).permute(1, 0, 2))
+        return _rebuild_uniform(tensors, vector.dtype)
+
+    @classmethod
     def constant(cls, n_sites, phys_dim, bond_dim, fill=1.0,
                  dtype=torch.float64, device=None):
         device = resolve_device(device)
@@ -89,6 +133,8 @@ class MPS:
 
     def _kernel_eligible(self, x, stabilize_every, remat_segments,
                          sites_per_step):
+        """Whether the chain kernel takes this call's device, dtypes, options
+        and bond (whether a gradient is needed is :meth:`_path`'s question)."""
         return (
             self.cores.is_cuda
             and self.cores.dtype in (torch.float32, torch.bfloat16)
@@ -98,6 +144,30 @@ class MPS:
             and sites_per_step == 1
             and self.bond_dim <= MAX_BOND
         )
+
+    def _path(self, x, kernel, stabilize_every, remat_segments,
+              sites_per_step):
+        """The evaluator a call of :meth:`evaluate` runs: ``"cuda"``,
+        ``"fused"``, ``"auto"`` or ``"scan"``.
+
+        ``"auto"`` takes the kernel only where it applies and autograd will
+        not record through it (the kernel has no backward); otherwise the
+        differentiable loop the JAX package's ``"auto"`` runs.
+        """
+        if kernel not in _KERNELS:
+            raise TNError(f"Unknown kernel {kernel!r}; options: {_KERNELS}")
+        if kernel == "cuda":
+            return "cuda"
+        if (kernel == "auto"
+                and self._kernel_eligible(x, stabilize_every, remat_segments,
+                                          sites_per_step)
+                and not records_grad(self.cores, self.left, self.right, x)):
+            return "cuda"
+        if sites_per_step > 1:
+            return "fused"
+        if kernel == "auto" and not remat_segments:
+            return "auto"
+        return "scan"
 
     def evaluate(self, x, split_format=True, stabilize_every=1,
                  kernel="auto", remat_segments=None, sites_per_step=1):
@@ -112,29 +182,31 @@ class MPS:
             kernel: ``"auto"`` — on a CUDA device the hand-written chain
                 kernel when it applies (real float32/bfloat16 cores,
                 ``stabilize_every == 1``, no ``remat_segments``,
-                ``sites_per_step == 1``, ``D <= 128``), else the plain
-                loops; ``"scan"`` — the plain per-site torch loop (needed for
-                ``remat_segments``); ``"cuda"`` — the chain kernel
-                (its plain version for CPU tensors), the counterpart of the
-                JAX package's ``"pallas"``.  The kernel keeps an fp32 carry
+                ``sites_per_step == 1``, ``D <= 128``) and autograd will not
+                record through it (grad mode off, or no operand requires
+                grad), else the differentiable loops; ``"scan"`` — the plain
+                per-site torch loop (needed for ``remat_segments``);
+                ``"cuda"`` — the chain kernel (its plain version for CPU
+                tensors), the counterpart of the JAX package's ``"pallas"``;
+                it has no backward and raises ``TNError`` where autograd
+                would record through it.  The kernel keeps an fp32 carry
                 and returns fp32 amplitudes for bfloat16 cores.
             remat_segments: checkpointed-segment count for sqrt(N)
                 backward-pass memory on long chains (forces ``"scan"``).
             sites_per_step: fuse this many sites per step
                 (:func:`~contractn_tpu_torch.ops.scan.mps_evaluate_fused`).
         """
-        if kernel not in _KERNELS:
-            raise TNError(f"Unknown kernel {kernel!r}; options: {_KERNELS}")
-        if kernel == "cuda" or (kernel == "auto" and self._kernel_eligible(
-                x, stabilize_every, remat_segments, sites_per_step)):
+        path = self._path(x, kernel, stabilize_every, remat_segments,
+                          sites_per_step)
+        if path == "cuda":
             amp, log = cuda_mps_evaluate(self.cores, self.left, self.right, x)
-        elif sites_per_step > 1:
+        elif path == "fused":
             amp, log = mps_evaluate_fused(
                 self.cores, self.left, self.right, x,
                 sites_per_step=sites_per_step,
                 stabilize_every=stabilize_every,
             )
-        elif kernel == "auto" and not remat_segments:
+        elif path == "auto":
             amp, log = mps_evaluate_auto(
                 self.cores, self.left, self.right, x,
                 stabilize_every=stabilize_every,
@@ -185,6 +257,37 @@ class MPS:
                            other.right.to(dtype))
         val, log = _stab_step(val, log, 0)
         return (val, log) if split_format else destabilize(val, log)
+
+    def site_expectations(self, op):
+        """``<psi| O_i |psi> / <psi|psi>`` at EVERY site.
+
+        Left and right density environments come from two loops over the
+        sites (each environment renormalized by its largest entry per step;
+        the factors cancel in the per-site ratio, so thousand-site chains
+        never overflow), then all ``n`` one-site sandwiches evaluate as one
+        batched einsum.  ``op (d, d)``; returns ``(n,)``.
+        """
+        cores = self.cores
+        op = as_tensor(op, cores.device)
+
+        def renorm(t):
+            return t / torch.clamp(t.abs().max(), min=1e-300)
+
+        rho = torch.outer(self.left.conj(), self.left)
+        ls = []
+        for a in cores:  # emit the env BEFORE absorbing site i
+            ls.append(rho)
+            rho = renorm(peinsum("ab,dax,dby->xy", rho, a.conj(), a))
+        rho = torch.outer(self.right.conj(), self.right)
+        rs = []
+        for a in reversed(cores):
+            rs.append(rho)
+            rho = renorm(peinsum("xy,dax,dby->ab", rho, a.conj(), a))
+        ls, rs = torch.stack(ls), torch.stack(rs[::-1])
+        # mixed dtypes promote inside peinsum (never narrowed)
+        num = peinsum("nab,nsax,st,ntby,nxy->n", ls, cores.conj(), op, cores, rs)
+        den = peinsum("nab,nsax,nsby,nxy->n", ls, cores.conj(), cores, rs)
+        return num / den
 
     # -- interop with the graph layer ----------------------------------- #
 

@@ -19,13 +19,15 @@ replaces:
 
 CUDA tensors go through the kernel (counted in
 ``epilogue_chain.launches``) or raise; CPU tensors run
-:func:`epilogue_chain_plain`.  The Pallas wrapper's ``sites_per_step`` and
-``interpret`` are TPU knobs and are not taken; ``acc_dtype`` is semantic and
-stays.
+:func:`epilogue_chain_plain`.  Neither entry point takes operands autograd
+would record through: the kernel has no backward.  The Pallas wrapper's
+``sites_per_step`` and ``interpret`` are TPU knobs and are not taken;
+``acc_dtype`` is semantic and stays.
 """
 
 import torch
 
+from ..utils.errors import check_no_autograd
 from . import _build
 from .cuda_mps import check_chain_args, f32, f32_input, tc_operands
 from .stabilize import MIN_NORM
@@ -63,9 +65,11 @@ def epilogue_chain_plain(cores, left, x, acc_dtype=None):
 
 def epilogue_chain(cores, left, x, acc_dtype=None):
     """Launch wrapper: ``(v, log)`` from the chain kernel (CUDA tensors,
-    counted in ``epilogue_chain.launches``) or its plain version (CPU)."""
+    counted in ``epilogue_chain.launches``) or its plain version (CPU).
+    Raises ``TNError`` where autograd would record through it."""
     acc = _acc_dtype(acc_dtype)
     n_sites, phys, bond, batch = check_chain_args(cores, left, None, x)
+    check_no_autograd("epilogue_chain", cores, left, x)
     if cores.device.type == "cpu":
         return epilogue_chain_plain(cores, left, x, acc)
     if cores.device.type != "cuda":
@@ -103,7 +107,11 @@ def mps_evaluate_epilogue(cores, left, right, x, acc_dtype=None):
     Returns:
         Split-format ``(amp, log)`` of shape ``(B,)``; ``amp`` in the core
         dtype, ``log`` in float32.
+
+    Raises ``TNError`` where autograd would record through it (the kernel
+    has no backward).
     """
+    check_no_autograd("mps_evaluate_epilogue", cores, left, right, x)
     v, log = epilogue_chain(cores, left, x, acc_dtype)
     amp = torch.matmul(v.float(), right.float())
     norm = amp.abs()

@@ -31,8 +31,11 @@ with guard ``mean > MIN_NORM`` and ``env * (1/safe)``.  The close with the
 boundary vectors runs outside the kernel in fp32.
 
 The MPO must be uniform (the same core at every site); a non-uniform one
-raises ``ValueError`` as in the JAX package.  The Pallas wrapper's ``btile``,
-``unroll`` and ``interpret`` are TPU knobs and are not taken.
+raises ``ValueError`` as in the JAX package.  The kernel has no backward:
+the entry points raise ``TNError`` where autograd would record through
+them (``MPO.expectation`` is the differentiable path).  The Pallas
+wrapper's ``btile``, ``unroll`` and ``interpret`` are TPU knobs and are not
+taken.
 """
 
 import ctypes
@@ -40,6 +43,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.errors import check_no_autograd
 from . import _build
 from .stabilize import MIN_NORM
 
@@ -160,7 +164,9 @@ def _mix_matrix(entries, phys, wdim):
 def mpo_env(cores, env0, entries, wdim):
     """Launch wrapper: the environment kernel for CUDA tensors (counted in
     ``mpo_env.launches`` and, by path, ``mpo_env.launches_by_path``),
-    :func:`mpo_env_plain` for CPU tensors."""
+    :func:`mpo_env_plain` for CPU tensors.  Raises ``TNError`` where autograd
+    would record through it (the kernel has no backward)."""
+    check_no_autograd("mpo_env", cores, env0)
     if cores.ndim != 5 or cores.shape[3] != cores.shape[4]:
         raise ValueError(f"cores must be (B, N, d, D, D), got {tuple(cores.shape)}")
     batch, n_sites, phys, bond, _ = cores.shape
@@ -241,6 +247,9 @@ def make_mpo_cuda_fn(mpo, left, right):
     right_f = right.to(torch.float32)
 
     def fn(cores):
+        # the MPO's core enters as constants (mpo_entries): it is checked too
+        check_no_autograd("mpo_expectation_cuda", cores, env0, mpo_right, right_f,
+                          mpo.cores)
         batch = cores.shape[0]
         env, log = mpo_env(cores, env0, entries, wdim)
         env = env.reshape(batch, wdim, bond, bond)

@@ -16,6 +16,10 @@ with ``DP`` and ``LD`` from the library (``cn_mps_core_rows``,
 conflicts.  That copy is made on every call (:func:`tc_operands`, shared with
 :mod:`.cuda_epilogue`).
 
+The kernel has no backward, as the Pallas kernel has no VJP: the wrapper
+raises where autograd would record through it (``MPS.evaluate`` with
+``kernel="auto"`` takes the differentiable loop then).
+
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 
 * per site ``u = v @ A_n`` with the fp32 carry cast to the core dtype
@@ -38,6 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.errors import check_no_autograd
 from . import _build
 from .stabilize import MIN_NORM
 
@@ -168,8 +173,12 @@ def cuda_mps_evaluate(cores, left, right, x):
         CUDA tensors go through the hand kernel (counted in
         ``cuda_mps_evaluate.launches``); CPU tensors through
         :func:`mps_evaluate_plain`.
+
+    Raises :class:`~contractn_tpu_torch.utils.errors.TNError` where autograd
+    would record through it (the kernel has no backward), on every device.
     """
     n_sites, phys, bond, batch = check_chain_args(cores, left, right, x)
+    check_no_autograd("cuda_mps_evaluate", cores, left, right, x)
     if cores.device.type == "cpu":
         return mps_evaluate_plain(cores, left, right, x)
     if cores.device.type != "cuda":

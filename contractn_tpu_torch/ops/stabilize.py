@@ -9,19 +9,58 @@ orders of magnitude is returned exactly as ``(mantissa, log_scale)``.
 All branches are ``torch.where``-selected, so no rescale waits on the device
 (no host round trip per step).
 
-Precision policy (replaces ``dot_precision`` / ``peinsum``): float32 work
-stays IEEE float32.  Nothing in this package enables TF32
-(``torch.backends.cuda.matmul.allow_tf32``, ``torch.backends.cudnn.allow_tf32``)
-or lowers ``torch.set_float32_matmul_precision`` below ``"highest"``;
+Precision policy: float32 work stays IEEE float32.  Nothing in this package
+enables TF32 (``torch.backends.cuda.matmul.allow_tf32``,
+``torch.backends.cudnn.allow_tf32``) or lowers
+``torch.set_float32_matmul_precision`` below ``"highest"``;
 ``tests/test_torch_graph.py`` checks the source for it.  bfloat16 runs only
-where the caller passes bfloat16 tensors.
+where the caller passes bfloat16 tensors.  :func:`dot_precision` and
+:func:`peinsum` are the counterparts of the JAX package's: the precision a
+contraction needs, and an einsum that refuses to run below it.
 """
 
 import torch
 
+from ..utils.errors import TNError
+
 # Below this total L1 mass a tensor is considered negligible and is left
 # unscaled (avoids division by ~0).
 MIN_NORM = 1e-7
+
+
+def dot_precision(*dtypes):
+    """Float32 matmul precision the given operand dtypes need.
+
+    ``"highest"`` (IEEE float32, no TF32 passes) when any operand is
+    float32, float64 or complex; ``None`` for bfloat16/float16 operands,
+    which the caller chose for speed.
+    """
+    for dt in dtypes:
+        if dt in (torch.float32, torch.float64) or dt.is_complex:
+            return "highest"
+    return None
+
+
+def peinsum(subscripts, *operands):
+    """``torch.einsum`` with the package's precision invariant and the JAX
+    package's dtype promotion.
+
+    Operands are promoted to one common dtype (``jnp.einsum`` promotes mixed
+    dtypes; ``torch.einsum`` refuses them).  Where that dtype needs IEEE
+    float32 (:func:`dot_precision`) and the process has lowered
+    ``torch.get_float32_matmul_precision()`` (TF32 enabled), it raises
+    :class:`TNError` instead of contracting at TF32 precision.
+    """
+    dtype = operands[0].dtype
+    for op in operands[1:]:
+        dtype = torch.promote_types(dtype, op.dtype)
+    if dot_precision(dtype) and torch.get_float32_matmul_precision() != "highest":
+        raise TNError(
+            "float32 matmul precision is lowered (TF32 is enabled); this "
+            "package computes float32 as IEEE float32: call "
+            "torch.set_float32_matmul_precision('highest')"
+        )
+    return torch.einsum(subscripts, *(op.to(dtype) for op in operands))
 
 
 def stabilize(tensor, log_scale):

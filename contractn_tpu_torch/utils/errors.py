@@ -4,6 +4,8 @@ Counterpart of ``contractn_tpu/utils/errors.py``: every user-facing failure
 raises a real exception with an actionable message.
 """
 
+import torch
+
 
 class TNError(ValueError):
     """Base class for tensor-network construction/contraction errors."""
@@ -34,4 +36,29 @@ def check_valid_tensor(tensor) -> None:
         raise TypeError(
             "Core tensors must expose .ndim and .shape attributes "
             f"(got object of type {type(tensor).__name__})"
+        )
+
+
+def records_grad(*tensors):
+    """Whether autograd would record an operation on ``tensors``: grad mode
+    is on and one of them (``None`` entries aside) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
+def check_no_autograd(entry, *tensors):
+    """Raise :class:`TNError` where autograd would record through ``entry``.
+
+    The hand kernels write into fresh outputs and have no backward, so a
+    gradient through them would be silently lost; the check runs on every
+    device, so the CPU (where the wrappers run their plain versions) refuses
+    what the GPU would.
+    """
+    if records_grad(*tensors):
+        raise TNError(
+            f"{entry} runs a hand kernel without a backward, and autograd is "
+            "recording through its operands: call it under torch.no_grad(), or "
+            "use the differentiable path (MPS.evaluate with kernel='auto' or "
+            "'scan', MPO.expectation)"
         )

@@ -6,14 +6,17 @@ neither JAX nor the JAX package, so it also runs on a machine without them:
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerances are those of ``chip_smoke.py``: log|psi| within the stated
-tolerance times each sample's condition number.
+tolerance times each sample's condition number.  The last tests hold the
+training paths on the card: a gradient through ``MPS.evaluate`` is kept
+(the differentiable loop runs, not the kernel) and the steps leave every
+tensor on the GPU.
 """
 
 import pytest
 import torch
 
 import chip_smoke
-from contractn_tpu_torch.ops import cuda_mpo
+from contractn_tpu_torch.ops import cuda_mpo, cuda_mps
 
 
 @pytest.fixture
@@ -76,3 +79,53 @@ def test_mpo_kernel_refuses_shapes_out_of_reach_on_gpu(cuda_device, phys, bond, 
     env0 = torch.zeros((wdim * bond, bond), device=cuda_device)
     with pytest.raises(ValueError, match="outside the MPO kernel's reach"):
         cuda_mpo.mpo_env(cores, env0, (), wdim)
+
+
+@pytest.mark.cuda
+def test_auto_gradient_on_gpu_matches_cpu_and_launches_nothing(cuda_device):
+    # log|psi| through MPS.evaluate("auto") keeps its gradient on the card:
+    # the differentiable loop runs, and #1 is not launched
+    from contractn_tpu_torch.models import MPS
+
+    gen = torch.Generator().manual_seed(3)
+    cores = torch.randn((24, 2, 64, 64), generator=gen) / (2 * 64) ** 0.5
+    left, right = torch.randn(64, generator=gen), torch.randn(64, generator=gen)
+    x = torch.randn((48, 24, 2), generator=gen)
+    # float32 on two devices differs in rounding order only: as in
+    # chip_smoke.grad_check, on the samples whose log|psi| float32 determines
+    cond = chip_smoke.mps_condition(cores, left, right, x)
+    x = x[chip_smoke.TOL_F32 * cond <= 1]
+    grads = []
+    for dev in (torch.device("cpu"), cuda_device):
+        params = [t.to(dev).requires_grad_(True) for t in (cores, left, right)]
+        before = cuda_mps.cuda_mps_evaluate.launches
+        val = MPS(*params).log_abs_amplitude(x.to(dev)).sum()
+        assert cuda_mps.cuda_mps_evaluate.launches == before
+        grads.append(torch.cat([g.cpu().reshape(-1)
+                                for g in torch.autograd.grad(val, params)]).double())
+    rel = float((grads[1] - grads[0]).norm() / grads[0].norm())
+    assert rel <= chip_smoke.TOL_GRAD, rel
+    with torch.no_grad():
+        before = cuda_mps.cuda_mps_evaluate.launches
+        MPS(*(t.to(cuda_device) for t in (cores, left, right))).log_abs_amplitude(
+            x.to(cuda_device))
+        assert cuda_mps.cuda_mps_evaluate.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_training_steps_stay_on_gpu(cuda_device):
+    from contractn_tpu_torch.models import MPS, born_machine, fit_born_machine
+    from contractn_tpu_torch.parallel import make_train_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    mps = MPS.random(9, 2, 16, generator=gen, device=cuda_device)
+    x = torch.randn((32, 9, 2), generator=gen, device=cuda_device)
+    before = cuda_mps.cuda_mps_evaluate.launches
+    new, loss = make_train_step(lr=1e-3)(mps, x, torch.zeros(32, device=cuda_device))
+    assert cuda_mps.cuda_mps_evaluate.launches == before
+    assert {t.device.type for t in (new.cores, new.left, new.right, loss)} == {"cuda"}
+    model = born_machine(8, 2, 8, dtype=torch.float32, generator=gen, device=cuda_device)
+    data = torch.randint(0, 2, (64, 8), generator=gen, device=cuda_device)
+    trained, losses = fit_born_machine(model, data, steps=1, lr=1e-3)
+    assert {t.device.type for t in (trained.cores, trained.left, trained.right, losses)} == {
+        "cuda"}
