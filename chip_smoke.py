@@ -37,7 +37,18 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    the differentiable loop, one step at 511 sites (one site a step), 10
    Born-machine Adam steps at 64 sites x bond 64 x batch 4096, 4096 exact
    samples from the trained model, and a CP fit through ``fit_tn``; no
-   training step may launch a hand kernel (they have no backward).
+   training step may launch a hand kernel (they have no backward);
+7. graph paths (``GRAPH``), none of which reaches a hand kernel: a
+   4096-matrix mixed-bond chain through ``contract(optimize="greedy")`` on
+   the bucketed lowering (plan items against steps, its warm time beside the
+   per-step loop's, the float64 oracle, ``contract_expression`` and
+   ``TN.compile(...).measure_compile()``); a random 3-regular network on the
+   native greedy path against the oracle; ``bp_contract`` on a 20,000-spin
+   3-regular Ising model against its closed-form Bethe free energy (float64
+   and float32); 5 imaginary-time TFIM simple-update layers on a 16 x 16
+   grid, card against CPU in float64, and the 3 x 3 anchor against exact
+   diagonalization; ``bp_ground_state`` on a 32-site TFIM ring, card against
+   CPU in float64.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -93,6 +104,31 @@ TRAIN = {"n_sites": 512, "phys": 2, "bond": 64, "batch": 1024, "steps": 3, "lr":
 TRAIN_ODD_SITES = 511
 BORN = {"n_sites": 64, "bond": 64, "batch": 4096, "steps": 10, "lr": 1e-3}
 FIT_TN_STEPS = 60
+# Graph paths (phase 7).  LOWERING: an open chain of matrices whose bonds
+# alternate 48 and 64 in blocks of 12 (not uniform, so the chain route
+# declines it and the pairwise steps are lowered into buckets).  NATIVE: a
+# random 3-regular network contracted on the native greedy path and held
+# against the float64 numpy oracle; the native path's cost depends on the
+# seed (9.5e7 to 3e12 FLOPs over seeds 0-39), and seed 7 (7.3e8 FLOPs,
+# largest intermediate 1.0e6 elements) keeps the oracle's unblocked
+# np.einsum to a few seconds.
+# ISING: the Ising model on a random 3-regular multigraph at beta 0.2, whose
+# Bethe free energy is known in closed form.  GRID: imaginary-time TFIM
+# simple update on an open grid; ANCHOR: the same on 3 x 3 against exact
+# diagonalization.  RING: bp_ground_state on a TFIM ring.
+GRAPH = {
+    "lowering": {"n_mats": 4096, "dims": (48, 64), "block": 12, "reps": 2},
+    "native": {"n_nodes": 64, "degree": 3, "bond": 4, "seed": 7},
+    "ising": {"n_spins": 20000, "beta": 0.2, "timed_sweeps": 10},
+    "grid": {"side": 16, "h": 3.0, "tau": 0.05, "layers": 5, "max_bond": 8},
+    "anchor": {"side": 3, "h": 3.0, "taus": (0.2, 0.1, 0.05, 0.02),
+               "layers": 15, "max_bond": 4},
+    "ring": {"n_sites": 32, "h": 2.0, "bond": 8, "steps": 50, "n_sweeps": 10,
+             "lr": 0.02},
+}
+TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
+TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
+TOL_CARD_VS_CPU = 1e-8  # float64 simple update and descent, card against CPU
 
 # Relative Frobenius error of the step-0 float32 gradient against the float64
 # gradient of the same loss on the same (float32) parameters, over the samples
@@ -757,6 +793,379 @@ def grad_check(mps, x, y):
     return rel
 
 
+# ---------------------------------------------------------------- phase 7
+
+SX = ((0.0, 1.0), (1.0, 0.0))
+SZ = ((1.0, 0.0), (0.0, -1.0))
+
+
+def graph_paths(device, smi, sizes=GRAPH):
+    """Phase 7: the graph paths through the user entry points; returns
+    ``{path: (counts, seconds)}``.  Each path runs with every launch count
+    zeroed just before it and read just after: none may launch a hand
+    kernel (none of them reaches one)."""
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+        return out
+
+    drive("lowering", lambda: lowering_path(device, smi, sizes["lowering"]))
+    drive("native_greedy", lambda: native_path(device, smi, sizes["native"]))
+    t0 = time.perf_counter()
+    ising = ising_tn(sizes["ising"]["n_spins"], sizes["ising"]["beta"])
+    log(f"  Ising network built on the host in {time.perf_counter() - t0:.1f} s "
+        f"({smi})")
+    for dtype in (torch.float64, torch.float32):
+        drive(f"bp_ising_{str(dtype)[6:]}",
+              lambda: ising_path(device, smi, sizes["ising"], ising, dtype))
+    drive("simple_update", lambda: simple_update_path(device, smi, sizes["grid"]))
+    drive("simple_update_anchor",
+          lambda: anchor_path(device, smi, sizes["anchor"]))
+    drive("bp_ground_state", lambda: descent_path(device, smi, sizes["ring"]))
+    for path, (counts, _) in runs.items():
+        if any(counts.values()):
+            raise AssertionError(f"path {path}: hand-kernel launches {counts}")
+    return runs
+
+
+def _timed(fn, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lowering_path(device, smi, cfg):
+    """A mixed-dimension chain through ``contract(optimize="greedy")``: the
+    bucketed plan against the per-step loop, the float64 oracle, and the
+    same signature through ``contract_expression`` and ``TN.compile``."""
+    import dataclasses
+
+    import numpy as np
+
+    from contractn_tpu_torch import contract, contract_expression
+    from contractn_tpu_torch.compiler import engine
+    from contractn_tpu_torch.models.decompositions import matrix_chain_tn
+    from contractn_tpu_torch.symbols import get_symbol
+
+    n, (d0, d1), block = cfg["n_mats"], cfg["dims"], cfg["block"]
+    dims = [d0 if (i // block) % 2 == 0 else d1 for i in range(n + 1)]
+    rng = np.random.default_rng(21)  # as tests/test_engine.py:498 draws them
+    mats64 = [rng.standard_normal((dims[i], dims[i + 1])) * 0.5 for i in range(n)]
+    mats = [torch.from_numpy(m.astype(np.float32)).to(device) for m in mats64]
+    einstr = ",".join(get_symbol(i) + get_symbol(i + 1) for i in range(n)) \
+        + "->" + get_symbol(0) + get_symbol(n)
+    shapes = tuple(m.shape for m in mats64)
+
+    (mant, lg), secs = _timed(lambda: contract(
+        einstr, *mats, split_format=True, optimize="greedy"), device)
+    plan = engine._plan(einstr, shapes, "greedy", None)
+    if plan.route != "steps" or plan.buckets is None:
+        raise AssertionError(f"lowering: the chain did not reach the buckets "
+                             f"(route {plan.route})")
+    kinds = {}
+    for item in plan.buckets.plan:
+        kinds[item["kind"]] = kinds.get(item["kind"], 0) + 1
+    _, ref_log = contract(einstr, *mats64, split_format=True, optimize="greedy",
+                          backend="numpy")
+    err = abs(float(lg) - float(ref_log))
+    rel = err / abs(float(ref_log))
+    finite = bool(torch.isfinite(mant).all())
+    log(f"  lowering: {n} matrices, bonds {d0}/{d1} in blocks of {block}, fp32: "
+        f"{len(plan.buckets)} plan items for {len(plan.steps)} steps {kinds}; "
+        f"plan built in {plan.build_ms:.1f} ms; first call {1e3 * secs:.1f} ms "
+        f"({smi}); log {float(lg):.10g} vs float64 oracle {float(ref_log):.10g} "
+        f"(absolute {err:.3e}, relative {rel:.3e}, tol {TOL_LOWERING_LOG})")
+    if not (finite and mant.shape == (d0, dims[-1]) and rel <= TOL_LOWERING_LOG):
+        raise AssertionError("lowering: result disagrees with the float64 oracle")
+
+    loop_plan = dataclasses.replace(plan, buckets=None)
+    times = {"bucketed": [], "per-step loop": []}
+    for _ in range(cfg["reps"]):
+        for name, p in (("bucketed", plan), ("per-step loop", loop_plan)):
+            (out, out_log), t = _timed(lambda: engine._run(p, mats), device)
+            times[name].append(1e3 * t)
+            if abs(float(out_log) - float(lg)) > 1e-4 * abs(float(lg)):
+                raise AssertionError(f"lowering: the {name} run disagrees")
+    log("  lowering warm times (host clock ending in a synchronize): "
+        + "; ".join(f"{k} {', '.join(f'{t:.1f}' for t in v)} ms"
+                    for k, v in times.items()) + f" ({smi})")
+
+    expr = contract_expression(einstr, *shapes, split_format=True,
+                               optimize="greedy")
+    (_, e_log), secs = _timed(lambda: expr(*mats), device)
+    tn = matrix_chain_tn(mats)
+    compiled = tn.compile(split_format=True, optimize="greedy")
+    stats = compiled.measure_compile()
+    _, c_log = compiled()
+    for what, value in (("contract_expression", e_log), ("TN.compile", c_log)):
+        if abs(float(value) - float(lg)) > 1e-4 * abs(float(lg)):
+            raise AssertionError(f"lowering: {what} disagrees ({float(value)})")
+    log(f"  contract_expression call {1e3 * secs:.1f} ms; TN.compile(...)"
+        f".measure_compile(): {stats} ({smi})")
+
+
+def native_path(device, smi, cfg):
+    """A random regular network on the native greedy path, against the
+    float64 oracle on the same path."""
+    import numpy as np
+
+    from contractn_tpu_torch.models.decompositions import random_regular_tn
+    from contractn_tpu_torch.native import native_available
+
+    if not native_available():
+        raise AssertionError("native path optimizer: could not build or load it")
+    tn, _ = random_regular_tn(cfg["n_nodes"], cfg["degree"], cfg["bond"],
+                              rng=np.random.default_rng(cfg["seed"]))
+    info = tn.contraction_info(optimize="native-greedy")
+    (mant, lg), secs = _timed(lambda: tn.contract(
+        split_format=True, optimize="native-greedy", device=device), device)
+    ref_m, ref_l = tn.contract(split_format=True, optimize="native-greedy",
+                               backend="numpy")
+    got = math.log(abs(float(mant))) + float(lg)
+    want = math.log(abs(float(ref_m))) + float(ref_l)
+    same_sign = (float(mant) > 0) == (float(ref_m) > 0)
+    log(f"  native-greedy: random 3-regular, {cfg['n_nodes']} nodes, bond "
+        f"{cfg['bond']}, seed {cfg['seed']}: {info.flops:.3e} FLOPs, largest "
+        f"intermediate {info.largest_intermediate:.3e} elements; {1e3 * secs:.1f} ms "
+        f"on the card (float64, path search included, {smi}); log|Z| {got:.12g} vs "
+        f"oracle {want:.12g}")
+    if not (same_sign and abs(got - want) <= 1e-9 * abs(want)):
+        raise AssertionError("native-greedy contraction disagrees with the oracle")
+
+
+def ising_tn(n_spins, beta, seed=0):
+    """Ising model on a random 3-regular multigraph: ``n_spins`` copy nodes
+    (degree 3, dim 2) paired by a seeded configuration model, one dense
+    2 x 2 bond node (numpy, float64) per edge."""
+    import numpy as np
+
+    from contractn_tpu_torch import TN
+
+    bond = np.array([[math.exp(beta), math.exp(-beta)],
+                     [math.exp(-beta), math.exp(beta)]])
+    stubs = np.repeat(np.arange(n_spins), 3)
+    np.random.default_rng(seed).shuffle(stubs)
+    tn = TN()
+    spins = [tn.add_copy_node(3, dim=2, name=f"v{i}") for i in range(n_spins)]
+    mode_next = [0] * n_spins
+    for k in range(0, len(stubs), 2):
+        a, b = int(stubs[k]), int(stubs[k + 1])
+        e = tn.add_dense_node(bond, name=f"e{k // 2}")
+        tn.connect_nodes(spins[a], e, mode_next[a], 0)
+        mode_next[a] += 1
+        tn.connect_nodes(spins[b], e, mode_next[b], 1)
+        mode_next[b] += 1
+    return tn
+
+
+def ising_path(device, smi, cfg, tn, dtype):
+    """``bp_contract`` on the 3-regular Ising model ``tn`` with its bond
+    tensors in ``dtype``: ln Z_BP must equal the closed form
+    ``N ln 2 + (3N/2) ln cosh(beta)``."""
+    from contractn_tpu_torch import bp_contract
+    from contractn_tpu_torch.compiler.bp import BPGraph
+
+    n, beta = cfg["n_spins"], cfg["beta"]
+    for node in tn.nodes():
+        if not node.is_copy:
+            node.tensor = node.tensor.astype(str(dtype)[6:])
+    (phase, lg), secs = _timed(lambda: bp_contract(tn, device=device), device)
+    got = math.log(abs(float(phase))) + float(lg)
+    analytic = n * math.log(2) + 1.5 * n * math.log(math.cosh(beta))
+    rel = abs(got - analytic) / analytic
+    graph, plan_s = _timed(lambda: BPGraph(tn, device=device), device)
+    stacks = graph.stacks()
+    (iters, _, _), solve = _timed(lambda: graph.fixed_point(stacks, 1e-12, 200, 0.0),
+                                  device)
+    k = cfg["timed_sweeps"]
+    _, swept = _timed(lambda: graph.sweeps(stacks, k, 0.0), device)
+    log(f"  bp_contract, Ising on a random 3-regular multigraph, {n} spins + "
+        f"{3 * n // 2} bonds, beta {beta}, {str(dtype)[6:]}: ln Z {got:.12g} vs "
+        f"{analytic:.12g} (relative {rel:.3e}, tol {TOL_BETHE[dtype]}); call "
+        f"{1e3 * secs:.1f} ms; plan {1e3 * plan_s:.1f} ms, {len(graph.groups)} node "
+        f"groups; {iters} sweep(s) to the fixed point in {1e3 * solve:.1f} ms; "
+        f"{1e3 * swept / k:.3f} ms a sweep over {k} sweeps ({smi})")
+    if not rel <= TOL_BETHE[dtype]:
+        raise AssertionError("Bethe free energy disagrees with the closed form")
+
+
+def grid_tn(side, device):
+    """|0...0> on an open side x side grid, bond 1, physical mode first,
+    node tensors on ``device``; returns ``(tn, pairs, coordination)``."""
+    from contractn_tpu_torch import TN
+
+    tn = TN()
+    names, coord = {}, {}
+    for x in range(side):
+        for y in range(side):
+            deg = sum([x > 0, x < side - 1, y > 0, y < side - 1])
+            t = torch.zeros((2,) + (1,) * deg, dtype=torch.float64, device=device)
+            t[(0,) * (deg + 1)] = 1.0
+            names[(x, y)] = f"g{x}_{y}"
+            coord[names[(x, y)]] = deg
+            tn.add_dense_node(t, name=names[(x, y)])
+    mode_next = {k: 1 for k in names}
+    pairs = []
+    for x in range(side):
+        for y in range(side):
+            for nb in ((x + 1, y), (x, y + 1)):
+                if nb in names:
+                    a, b = (x, y), nb
+                    tn.connect_nodes(names[a], names[b], mode_next[a], mode_next[b])
+                    mode_next[a] += 1
+                    mode_next[b] += 1
+                    pairs.append((names[a], names[b]))
+    return tn, pairs, coord
+
+
+def tfim_bond_terms(pairs, coord, h):
+    """Per-bond TFIM terms, the field split by coordination."""
+    import numpy as np
+
+    sx, sz, eye = np.array(SX), np.array(SZ), np.eye(2)
+    return [(a, b, -np.kron(sz, sz) - (h / coord[a]) * np.kron(sx, eye)
+             - (h / coord[b]) * np.kron(eye, sx)) for a, b in pairs]
+
+
+def simple_update(device, cfg, side):
+    """``layers`` imaginary-time TFIM layers of every nearest-neighbour gate
+    through ``bp_apply_gates``, then the BP energy per site from
+    ``bp_measure``; returns ``(energy per site, spectra, seconds, measure
+    seconds)``."""
+    from contractn_tpu_torch import bp_apply_gates, bp_measure, gate_from_term
+
+    tn, pairs, coord = grid_tn(side, device)
+    terms = tfim_bond_terms(pairs, coord, cfg["h"])
+    taus = cfg["taus"] if "taus" in cfg else (cfg["tau"],)
+    t0 = time.perf_counter()
+    for tau in taus:
+        gates = [(gate_from_term(h2, tau, imaginary=True, device=device), a, b)
+                 for a, b, h2 in terms]
+        for _ in range(cfg["layers"]):
+            tn, spectra = bp_apply_gates(tn, gates, max_bond=cfg["max_bond"],
+                                         renormalize=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, bond_vals = bp_measure(tn, bonds=terms)
+    energy = sum(v.real for v in bond_vals) / side ** 2
+    return tn, energy, spectra, t1 - t0, time.perf_counter() - t1
+
+
+def simple_update_path(device, smi, cfg):
+    """The grid on the card and on the CPU, both float64: energies and
+    normalized spectra agree to ``TOL_CARD_VS_CPU``."""
+    side = cfg["side"]
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        _, e, spectra, secs, msecs = simple_update(dev, cfg, side)
+        out[dev.type] = (e, spectra)
+        n_gates = 2 * side * (side - 1)
+        log(f"  simple update {side} x {side} on {dev.type}, float64, "
+            f"{cfg['layers']} layers x {n_gates} gates, max_bond {cfg['max_bond']}: "
+            f"{secs:.2f} s ({1e3 * secs / (cfg['layers'] * n_gates):.2f} ms a gate); "
+            f"bp_measure {1e3 * msecs:.1f} ms; energy per site {e:.12f}; bonds "
+            f"{sorted({len(s) for s in spectra})} ({smi})")
+    (e_card, s_card), (e_cpu, s_cpu) = out[device.type], out["cpu"]
+    worst = max((float((torch.sort(a.cpu())[0] - torch.sort(b)[0]).abs().max())
+                 if a.shape == b.shape else math.inf) for a, b in zip(s_card, s_cpu))
+    log(f"  card vs CPU: energy per site differs by {abs(e_card - e_cpu):.3e}, "
+        f"spectra by {worst:.3e} (tol {TOL_CARD_VS_CPU})")
+    if not (abs(e_card - e_cpu) <= TOL_CARD_VS_CPU and worst <= TOL_CARD_VS_CPU):
+        raise AssertionError("simple update: card and CPU disagree")
+
+
+def anchor_path(device, smi, cfg):
+    """The 3 x 3 simple-update anchor on the card: the true energy of the
+    evolved network within 1% of exact diagonalization."""
+    import numpy as np
+
+    side = cfg["side"]
+    tn, e_bp, _, secs, _ = simple_update(device, cfg, side)
+    n = side * side
+    sx, sz = np.array(SX), np.array(SZ)
+
+    def op(o, i):
+        m = np.eye(1)
+        for j in range(n):
+            m = np.kron(m, o if j == i else np.eye(2))
+        return m
+
+    hd = np.zeros((2 ** n, 2 ** n))
+    for x in range(side):
+        for y in range(side):
+            i = x * side + y
+            for nx, ny in ((x + 1, y), (x, y + 1)):
+                if nx < side and ny < side:
+                    hd -= op(sz, i) @ op(sz, nx * side + ny)
+            hd -= cfg["h"] * op(sx, i)
+    e0 = np.linalg.eigvalsh(hd)[0]
+    mant, _ = tn.contract(split_format=True)
+    psi = mant.double().cpu().numpy().reshape(-1)
+    psi = psi / np.linalg.norm(psi)
+    e_true = float(psi @ hd @ psi)
+    rel = abs(e_true - e0) / abs(e0)
+    log(f"  simple-update anchor {side} x {side} on the card: {secs:.2f} s; true "
+        f"energy {e_true:.8f} vs exact {e0:.8f} (relative {rel:.2e}, tol 1e-2); "
+        f"BP energy {e_bp * n:.8f} ({smi})")
+    if not rel < 1e-2:
+        raise AssertionError("simple-update anchor: not within 1% of exact")
+
+
+def ring_tn(n, chi, seed, device):
+    """A TFIM ring of (2, chi, chi) tensors, modes (phys, right, left)."""
+    from contractn_tpu_torch import TN
+
+    gen = torch.Generator().manual_seed(seed)
+    tn = TN()
+    for i in range(n):
+        t = 0.3 * torch.randn((2, chi, chi), generator=gen, dtype=torch.float64)
+        tn.add_dense_node(t.to(device), name=f"s{i}")
+    for i in range(n):
+        tn.connect_nodes(f"s{i}", f"s{(i + 1) % n}", 1, 2)
+    return tn
+
+
+def descent_path(device, smi, cfg):
+    """``bp_ground_state`` on a TFIM ring, on the card and on the CPU in
+    float64: the energy trajectories agree to ``TOL_CARD_VS_CPU``."""
+    import numpy as np
+
+    from contractn_tpu_torch import bp_ground_state
+
+    n = cfg["n_sites"]
+    sx, sz = np.array(SX), np.array(SZ)
+    bonds = [(f"s{i}", f"s{(i + 1) % n}", -np.kron(sz, sz)) for i in range(n)]
+    local = [(f"s{i}", -cfg["h"] * sx) for i in range(n)]
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        tn = ring_tn(n, cfg["bond"], 31, dev)
+        (_, energies), secs = _timed(lambda: bp_ground_state(
+            tn, bonds, local, steps=cfg["steps"], lr=cfg["lr"],
+            n_sweeps=cfg["n_sweeps"]), dev)
+        out[dev.type] = energies.cpu()
+        log(f"  bp_ground_state, TFIM ring of {n} at bond {cfg['bond']}, h "
+            f"{cfg['h']}, {cfg['n_sweeps']} sweeps, float64 on {dev.type}: "
+            f"{cfg['steps']} steps in {secs:.2f} s ({1e3 * secs / cfg['steps']:.1f} "
+            f"ms a step); energy per site {float(energies[0]) / n:.8f} -> "
+            f"{float(energies[-1]) / n:.8f} ({smi})")
+    diff = float((out[device.type] - out["cpu"]).abs().max())
+    log(f"  card vs CPU: energies differ by at most {diff:.3e} (tol {TOL_CARD_VS_CPU})")
+    if not (diff <= TOL_CARD_VS_CPU and out["cpu"][-1] < out["cpu"][0]):
+        raise AssertionError("bp_ground_state: card and CPU disagree, or no descent")
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -870,6 +1279,9 @@ def main():
     log("== 6. training paths")
     for path, (counts, secs) in training_paths(device, smi).items():
         log(f"  path {path}: {secs:.3f} s, launches {counts}")
+    log("== 7. graph paths")
+    for path, (counts, secs) in graph_paths(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@ Counterpart of ``contractn_tpu/compiler/engine.py``.  Public entry point:
 * The pairwise path is found **once per shape signature** (cached, see
   :mod:`.paths`); each call then runs the steps eagerly in torch, with a
   split-format rescale after every step.
+* Long regular step runs (a level of identical pair contractions, a linear
+  recurrence) are lowered by :mod:`.lowering` to one batched einsum or one
+  loop over a pre-stacked operand each, with the same rescales in the same
+  order.
 * Long homogeneous matrix chains, ring traces and pure hyperedge (Hadamard)
   contractions are detected and rerouted to :mod:`..ops.chain`.
 * Repeated *output* indices (a copy node with several dangling edges) are
@@ -15,13 +19,14 @@ Counterpart of ``contractn_tpu/compiler/engine.py``.  Public entry point:
 * ``backend="numpy"`` runs the same step sequence eagerly in numpy — the
   float64 parity oracle.
 
-Departures from the JAX package: path search is greedy or explicit (no
-opt_einsum strategies); there is no shape-bucketed lowering (it changed only
-program structure there, never values); torch operands keep native autograd
-instead of going through an interop bridge; and the computation runs on the
-GPU unless the caller asks for the CPU (:mod:`..utils.device`).
+Departures from the JAX package: path search is greedy, native greedy or
+explicit (no other opt_einsum strategies); torch operands keep native
+autograd instead of going through an interop bridge; and the computation
+runs on the GPU unless the caller asks for the CPU (:mod:`..utils.device`).
 """
 
+import time
+from dataclasses import dataclass
 from functools import lru_cache, reduce
 
 import numpy as np
@@ -35,6 +40,7 @@ from ..ops.chain import (
 from ..ops.stabilize import MIN_NORM, destabilize, stabilize
 from ..utils.device import as_tensor, real_dtype, resolve_device
 from ..utils.errors import TNError
+from .lowering import lower
 from .paths import find_steps
 
 # Below this many chain links the general einsum path is used; above it the
@@ -320,44 +326,85 @@ def _detect_hadamard(einstr, shapes):
 # --------------------------------------------------------------------- #
 
 
+@dataclass(frozen=True)
+class Plan:
+    """How one signature runs: a structure ``route`` (``"chain"``,
+    ``"hadamard"``, ``"ring"``) with its ``flags``, or the pairwise
+    ``steps``, lowered to ``buckets`` where :mod:`.lowering` finds regular
+    runs.  ``build_ms`` is what building it took (path search and lowering
+    plan), measured when the signature was first planned."""
+
+    route: str
+    flags: tuple = ()
+    steps: tuple = ()
+    unique_out: str = ""
+    full_out: str | None = None
+    buckets: object = None
+    build_ms: float = 0.0
+
+
 @lru_cache(maxsize=None)
 def _plan(einstr, shapes, optimize, memory_limit):
-    """How to run one signature: a structure route or the pairwise steps."""
+    """The cached :class:`Plan` of one signature."""
+    t0 = time.perf_counter()
     reduced, full_out = _dedup_output(einstr)
     # Structure reroutes only fire for string strategies — an explicit
     # user-provided path is always honored via the pairwise steps.
     if full_out is None and isinstance(optimize, str):
-        chain = _detect_chain(reduced, shapes)
-        if chain is not None:
-            return ("chain", chain[1], chain[2])
-        hadamard = _detect_hadamard(reduced, shapes)
-        if hadamard is not None:
-            return ("hadamard", hadamard)
-        if _detect_ring(reduced, shapes):
-            return ("ring",)
+        route = _route(reduced, shapes)
+        if route is not None:
+            return Plan(*route, build_ms=1e3 * (time.perf_counter() - t0))
     terms, unique_out = _parse(reduced)
     steps = find_steps(tuple(terms), unique_out, shapes, optimize, memory_limit)
     steps = tuple((inds, _remap_ascii(s)) for inds, s in steps)
-    return ("steps", steps, unique_out, full_out)
+    # Shape-bucketed lowering: long regular runs become one batched einsum
+    # or one loop over a stacked operand each (None for irregular paths)
+    buckets = lower(steps, len(shapes), shapes)
+    return Plan("steps", (), steps, unique_out, full_out, buckets,
+                1e3 * (time.perf_counter() - t0))
+
+
+def _route(einstr, shapes):
+    """``(route, flags)`` of a structure route the signature takes, or None."""
+    chain = _detect_chain(einstr, shapes)
+    if chain is not None:
+        return "chain", chain[1:]
+    hadamard = _detect_hadamard(einstr, shapes)
+    if hadamard is not None:
+        return "hadamard", (hadamard,)
+    if _detect_ring(einstr, shapes):
+        return "ring", ()
+    return None
 
 
 def _run(plan, ops):
     """Execute a plan on torch operands; returns ``(mantissa, log_scale)``."""
-    kind = plan[0]
-    if kind == "chain":
-        first_is_vec, last_is_vec = plan[1], plan[2]
+    if plan.route == "chain":
+        first_is_vec, last_is_vec = plan.flags
         lo = 1 if first_is_vec else 0
         hi = len(ops) - 1 if last_is_vec else len(ops)
         mats = torch.stack(ops[lo:hi])
         left = ops[0] if first_is_vec else None
         right = ops[-1] if last_is_vec else None
         return stabilized_chain_product(mats, left=left, right=right)
-    if kind == "hadamard":
-        return stabilized_hadamard_product(torch.stack(ops), plan[1])
-    if kind == "ring":
+    if plan.route == "hadamard":
+        return stabilized_hadamard_product(torch.stack(ops), plan.flags[0])
+    if plan.route == "ring":
         return stabilized_ring_product(torch.stack(ops))
 
-    _, steps, unique_out, full_out = plan
+    if plan.buckets is not None:
+        result, log_scale = plan.buckets.run(ops)
+    else:
+        result, log_scale = _run_steps(plan.steps, ops)
+    if plan.full_out is not None:
+        result = _embed_diagonal(result, plan.unique_out, plan.full_out)
+        # Re-normalize: embedding inserts zeros, changing the mean |elem|
+        result, log_scale = stabilize(result, log_scale)
+    return result, log_scale
+
+
+def _run_steps(steps, ops):
+    """The per-step loop: one einsum and one rescale a pairwise step."""
     ops = list(ops)
     log_scale = torch.zeros(
         (), dtype=real_dtype(ops[0].dtype), device=ops[0].device
@@ -366,12 +413,7 @@ def _run(plan, ops):
         tmp = [ops.pop(i) for i in inds]
         new, log_scale = stabilize(torch.einsum(step_str, *tmp), log_scale)
         ops.append(new)
-    result = ops[0]
-    if full_out is not None:
-        result = _embed_diagonal(result, unique_out, full_out)
-        # Re-normalize: embedding inserts zeros, changing the mean |elem|
-        result, log_scale = stabilize(result, log_scale)
-    return result, log_scale
+    return ops[0], log_scale
 
 
 # --------------------------------------------------------------------- #

@@ -9,6 +9,9 @@ dependency of this package, so the path search lives here:
   order of least ``size(result) - size(a) - size(b)``, then the leftovers
   are joined by outer products, smallest first.  ``optimize="auto"`` and
   ``"greedy"`` both use it.
+* ``"native-greedy"`` — the C++ greedy optimizer of :mod:`..native`
+  (built with ``g++`` at first use); it raises :class:`TNError` where the
+  library cannot be built or loaded.
 * explicit paths (opt_einsum's linear-id format, e.g. ``[(0, 1), (0, 1)]``)
   are honoured as given.
 
@@ -18,12 +21,15 @@ the split-format mantissa is renormalized after the last step.
 """
 
 import heapq
+from collections import Counter
 import math
 from functools import lru_cache
 
 from ..utils.errors import TNError
+from ..utils.introspect import Timings
 
 _GREEDY_NAMES = ("auto", "greedy")
+NATIVE = "native-greedy"
 
 
 def _size(indices, sizes):
@@ -164,39 +170,60 @@ def steps_from_path(terms, output, path):
     remaining operands or the output, and the last step emits ``output``.
     """
     inputs = list(terms)
+    holders = Counter(ix for t in inputs for ix in set(t))  # terms holding ix
+    keep = set(output)
     steps = []
     for k, step in enumerate(path):
         pos = tuple(sorted(step, reverse=True))
         taken = [inputs.pop(i) for i in pos]
+        for t in taken:
+            holders.subtract(set(t))
         if k == len(path) - 1:
             result = output
         else:
-            needed = set(output).union(*inputs)
             result = "".join(
-                dict.fromkeys(ix for t in taken for ix in t if ix in needed)
+                dict.fromkeys(
+                    ix for t in taken for ix in t
+                    if ix in keep or holders[ix] > 0
+                )
             )
+        holders.update(set(result))
         inputs.append(result)
         steps.append((pos, ",".join(taken) + "->" + result))
     return tuple(steps)
 
 
 @lru_cache(maxsize=None)
-def find_steps(terms, output, shapes, optimize, memory_limit):
-    """Cached pairwise steps for one ``(einsum, shapes, optimize)`` signature.
+def find_path(terms, output, shapes, optimize, memory_limit):
+    """Cached linear-id path for one ``(einsum, shapes, optimize)`` signature.
 
     ``terms`` and ``shapes`` are tuples; ``optimize`` is ``"auto"``,
-    ``"greedy"`` or an explicit path frozen to a tuple of tuples.
+    ``"greedy"``, ``"native-greedy"`` or an explicit path frozen to a tuple of
+    tuples.
     """
-    if isinstance(optimize, str):
-        if optimize not in _GREEDY_NAMES:
-            raise TNError(
-                f"Path strategy {optimize!r} is not available in this package; "
-                "use 'auto', 'greedy' or an explicit path"
-            )
-        sizes = {}
-        for term, shape in zip(terms, shapes):
-            sizes.update(zip(term, shape))
-        path = greedy_path(terms, output, sizes, memory_limit)
-    else:
-        path = _explicit_path(optimize, len(terms))
+    if not isinstance(optimize, str):
+        return _explicit_path(optimize, len(terms))
+    if optimize not in _GREEDY_NAMES + (NATIVE,):
+        raise TNError(
+            f"Path strategy {optimize!r} is not available in this package; "
+            f"use 'auto', 'greedy', '{NATIVE}' or an explicit path"
+        )
+    sizes = {}
+    for term, shape in zip(terms, shapes):
+        sizes.update(zip(term, shape))
+    with Timings.measure("path_find"):
+        if optimize == NATIVE:
+            from ..native import greedy_path as native_greedy_path
+
+            if len(terms) == 1:
+                return ((0,),)
+            return tuple(native_greedy_path(terms, output, sizes))
+        return greedy_path(terms, output, sizes, memory_limit)
+
+
+@lru_cache(maxsize=None)
+def find_steps(terms, output, shapes, optimize, memory_limit):
+    """Cached pairwise steps for one ``(einsum, shapes, optimize)`` signature
+    (arguments as for :func:`find_path`)."""
+    path = find_path(terms, output, shapes, optimize, memory_limit)
     return steps_from_path(terms, output, path)

@@ -17,6 +17,7 @@ from .canonical import (
     schmidt_spectra,
     truncate_safe,
 )
+from .decompositions import cp_tn, mps_tn, tensor_ring_tn, tucker_tn
 from .dmrg import heisenberg_mpo, tfim_mpo
 from .features import fourier_features, one_hot, trig_features
 from .mpo import MPO, mpo_from_bond_term, rayleigh
@@ -34,6 +35,7 @@ __all__ = [
     "compress",
     "compress_fixed",
     "compress_mpo",
+    "cp_tn",
     "entanglement_entropy",
     "fit_born_machine",
     "fourier_features",
@@ -42,6 +44,7 @@ __all__ = [
     "left_canonicalize",
     "mpo_from_bond_term",
     "mps_add",
+    "mps_tn",
     "mps_log_prob",
     "one_hot",
     "peps_expectation",
@@ -53,7 +56,9 @@ __all__ = [
     "sample_canonical",
     "sample_conditional",
     "schmidt_spectra",
+    "tensor_ring_tn",
     "tfim_mpo",
     "trig_features",
     "truncate_safe",
+    "tucker_tn",
 ]

@@ -765,6 +765,129 @@ class TN:
         return out
 
 
+    # ------------------------------------------------------------------ #
+    # Inspection and compiled contractions
+    # ------------------------------------------------------------------ #
+
+    def to_dot(self, max_nodes=500):
+        """Graphviz DOT source for the layout.
+
+        Node styling encodes type (dense = box, clone = dashed box,
+        copy/hyper = small filled circle, input = house, dangler = point);
+        bonds are labeled ``symbol:dim``.  Render with any graphviz
+        install (``dot -Tsvg``); the method itself has no dependency.
+        """
+        style = {
+            "dense": 'shape=box, style=filled, fillcolor="#cfe3ff"',
+            "clone": 'shape=box, style="dashed,filled", '
+                     'fillcolor="#e8f0ff"',
+            "hyper": 'shape=circle, width=0.25, style=filled, '
+                     'fillcolor="#222222", label=""',
+            "input": 'shape=house, style=filled, fillcolor="#ffe9c7"',
+            "dangler": "shape=point, width=0.06",
+        }
+        lines = [
+            "graph TN {",
+            "  layout=neato; overlap=false; splines=true;",
+            '  edge [fontsize=9, color="#555555"];',
+            "  node [fontsize=10];",
+        ]
+        shown = set()
+        for i, node in enumerate(self.nodes(as_iter=True, danglers=True)):
+            if i >= max_nodes:
+                lines.append(f'  // ... {len(self._nodes) - i} more nodes')
+                break
+            attrs = style[node.node_type]
+            if node.node_type in ("dense", "clone", "input"):
+                shape = "x".join(str(d) for d in node.shape)
+                attrs += f', label="{node.name}\\n({shape})"'
+            lines.append(f'  "{node.name}" [{attrs}];')
+            shown.add(node.name)
+        for edge in self.edges(as_iter=True):
+            n1, n2 = edge.name[:2]
+            if n1 not in shown or n2 not in shown:
+                continue
+            dim = "?" if edge.dim < 0 else str(edge.dim)
+            lines.append(
+                f'  "{n1}" -- "{n2}" [label="{edge.symbol}:{dim}"];'
+            )
+        lines.append("}")
+        return "\n".join(lines)
+
+    def draw(self, max_nodes=50):
+        """Compact text rendering of the layout (for quick inspection).
+
+        One line per core node: type, shape, and each mode's einsum symbol
+        with its peer (``*`` marks an open/dangling mode).
+        """
+        lines = [repr(self)]
+        for i, node in enumerate(self.nodes(as_iter=True)):
+            if i >= max_nodes:
+                lines.append(f"  ... ({self.num_cores - max_nodes} more)")
+                break
+            modes = []
+            for k in range(node.ndim):
+                edge = node[k]
+                other = edge.name[1] if edge.name[0] == node.name \
+                    else edge.name[0]
+                peer = "*" if self._nodes[other].dangler else other
+                modes.append(f"{edge.symbol}:{peer}")
+            shape = "x".join(str(s) for s in node.shape)
+            lines.append(
+                f"  {node.name} [{node.node_type} {shape or 'scalar'}] "
+                + " ".join(modes)
+            )
+        return "\n".join(lines)
+
+    def to_networkx(self):
+        """Export the layout as a ``networkx.MultiGraph`` for inspection.
+
+        Nodes carry ``node_type``; edges carry ``dim`` and ``symbol``.  The
+        export is a snapshot: mutating it does not affect this TN.  networkx
+        is not a dependency of this package: without it this raises
+        :class:`TNError`.
+        """
+        try:
+            import networkx as nx
+        except ImportError as exc:
+            raise TNError(
+                "TN.to_networkx needs the networkx package, which is not "
+                "installed"
+            ) from exc
+
+        g = nx.MultiGraph()
+        for node in self._nodes.values():
+            g.add_node(node.name, node_type=node.node_type)
+        for edge in self._edges.values():
+            n1, n2, key = edge.name
+            g.add_edge(n1, n2, key=key, dim=edge.dim, symbol=edge.symbol)
+        return g
+
+    def compile(self, optimize="auto", split_format=False, **kwargs):
+        """Build a reusable, introspectable compiled contraction.
+
+        Returns a
+        :class:`~contractn_tpu_torch.compiler.expression.CompiledContraction`
+        — call it with ``(params, inputs)``, query ``.info()`` for the cost
+        model, ``.measure_compile()`` for its staging times.
+        """
+        from .compiler.expression import CompiledContraction
+
+        return CompiledContraction(
+            self, optimize=optimize, split_format=split_format, **kwargs
+        )
+
+    def contraction_info(self, optimize="auto", inputs_shapes=None,
+                         memory_limit=None):
+        """Static cost model of this TN's contraction (FLOPs, largest
+        intermediate, chosen path)."""
+        from .utils.introspect import contraction_info
+
+        return contraction_info(
+            self, optimize=optimize, inputs_shapes=inputs_shapes,
+            memory_limit=memory_limit,
+        )
+
 def _einsum_pair(subscripts, t1, t2):
     """``einsum`` of two node tensors: numpy for two numpy arrays, else
     torch on the torch operand's device."""

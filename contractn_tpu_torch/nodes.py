@@ -130,6 +130,13 @@ class Node:
     def is_copy(self):
         return self._node_type == "hyper"
 
+    @property
+    def G(self):
+        """The owning TN's layout as a ``networkx.MultiGraph`` — the same
+        snapshot as :meth:`TN.to_networkx` (mutating it does not mutate the
+        TN; raises :class:`TNError` without networkx)."""
+        return self.tn.to_networkx()
+
     # ------------------------------------------------------------------ #
     # Edges and symbols
     # ------------------------------------------------------------------ #

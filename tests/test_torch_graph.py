@@ -176,6 +176,43 @@ def test_port_imports_no_jax_and_never_enables_tf32():
     assert not bad, bad
 
 
+def test_port_needs_no_opt_einsum_or_networkx():
+    """opt_einsum is imported nowhere in the port, networkx only inside the
+    method that exports to it (neither is installed beside the card)."""
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for mod in _imports(tree):
+            if mod.split(".")[0] == "opt_einsum":
+                bad.append(f"{path.name}: imports {mod}")
+        for mod in _import_time_imports(tree):
+            if mod.split(".")[0] == "networkx":
+                bad.append(f"{path.name}: imports {mod} at import time")
+    assert not bad, bad
+
+
+def _import_time_imports(node):
+    """Imports that run when the module is imported: all but those inside
+    function bodies."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            yield from (alias.name for alias in child.names)
+        elif isinstance(child, ast.ImportFrom) and child.level == 0:
+            yield child.module
+        else:
+            yield from _import_time_imports(child)
+
+
+def test_top_level_api_matches_jax():
+    assert set(ttn.__all__) == set(jtn.__all__)
+    for name in ttn.__all__:
+        assert hasattr(ttn, name), name
+
+
 def test_entry_points_raise_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ttn.TNError, match="device='cpu'"):
