@@ -48,7 +48,20 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    and float32); 5 imaginary-time TFIM simple-update layers on a 16 x 16
    grid, card against CPU in float64, and the 3 x 3 anchor against exact
    diagonalization; ``bp_ground_state`` on a 32-site TFIM ring, card against
-   CPU in float64.
+   CPU in float64; the chain's plan items must equal the JAX package's;
+8. finite chains (``CHAINS``): two-site DMRG of the 100-site spin-1
+   Heisenberg chain built through ``OpSum`` (bond 128, 5 sweeps, float64;
+   the time of each sweep and its split between local solves, SVD splits and
+   environment updates; the energy against ITensors.jl's published value),
+   its ground state served on 4096 sampled configurations through
+   ``MPS.evaluate`` under ``torch.no_grad()`` (#1, exactly one launch, held
+   against the plain version); DMRG of the critical 100-site TFIM at bond 64
+   against the free-fermion energy; ``dmrg_ensemble`` over 64 TFIM chains of
+   32 sites in one batched call, each against free fermions;
+   ``tdvp1_evolve`` of the TFIM ground state under a field quench in
+   complex128 (norm and energy conserved); ``itebd_ground_state`` at bond 32
+   against -4/pi; an ``OpSum`` Heisenberg MPO against ``heisenberg_mpo``;
+   and the split's 384 x 384 float64 SVD under cuSOLVER's drivers.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -117,7 +130,8 @@ FIT_TN_STEPS = 60
 # simple update on an open grid; ANCHOR: the same on 3 x 3 against exact
 # diagonalization.  RING: bp_ground_state on a TFIM ring.
 GRAPH = {
-    "lowering": {"n_mats": 4096, "dims": (48, 64), "block": 12, "reps": 2},
+    "lowering": {"n_mats": 4096, "dims": (48, 64), "block": 12, "reps": 2,
+                 "jax_plan_items": 1047},
     "native": {"n_nodes": 64, "degree": 3, "bond": 4, "seed": 7},
     "ising": {"n_spins": 20000, "beta": 0.2, "timed_sweeps": 10},
     "grid": {"side": 16, "h": 3.0, "tau": 0.05, "layers": 5, "max_bond": 8},
@@ -125,6 +139,28 @@ GRAPH = {
                "layers": 15, "max_bond": 4},
     "ring": {"n_sites": 32, "h": 2.0, "bond": 8, "steps": 50, "n_sweeps": 10,
              "lr": 0.02},
+}
+# Finite-chain paths (phase 8).  SPIN1: the spin-1 Heisenberg chain of
+# ITensors.jl's documented DMRG example (N 100, 5 sweeps; its bond schedule
+# rises to 200, cut here to one cap of 128, kernel #1's reach), whose ground
+# energy the example prints as about -138.94.  TFIM: the critical open chain,
+# held against the free-fermion energy.  ENSEMBLE: 64 TFIM chains over a
+# field scan in one batched search.  QUENCH: single-site TDVP from the TFIM
+# ground state (h 1 -> 0.5) in complex128.  ITEBD: the infinite critical
+# chain against -4/pi to the JAX test's 5e-4.  OPSUM: an OpSum-built
+# Heisenberg MPO against heisenberg_mpo through rayleigh.
+CHAINS = {
+    "spin1": {"n_sites": 100, "bond": 128, "sweeps": 5, "serve_batch": 4096,
+              "published": -138.94, "published_tol": 0.01, "seed": 3},
+    "tfim": {"n_sites": 100, "h": 1.0, "bond": 64, "sweeps": 5, "rtol": 1e-8,
+             "seed": 4},
+    "ensemble": {"n_members": 64, "h": (0.5, 1.5), "n_sites": 32, "bond": 32,
+                 "sweeps": 4, "rtol": 1e-7, "seed": 5},
+    "quench": {"h": 0.5, "dt": 0.05, "steps": 10, "drift_tol": 1e-7,
+               "norm_tol": 1e-10},
+    "itebd": {"bond": 32, "tol": 5e-4},
+    "opsum": {"n_sites": 100, "bond": 16, "rtol": 1e-10, "seed": 6},
+    "svd": {"rows": 384, "reps": 5},
 }
 TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
 TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
@@ -888,6 +924,9 @@ def lowering_path(device, smi, cfg):
         f"(absolute {err:.3e}, relative {rel:.3e}, tol {TOL_LOWERING_LOG})")
     if not (finite and mant.shape == (d0, dims[-1]) and rel <= TOL_LOWERING_LOG):
         raise AssertionError("lowering: result disagrees with the float64 oracle")
+    if n == 4096 and len(plan.buckets) != cfg["jax_plan_items"]:
+        raise AssertionError(f"lowering: {len(plan.buckets)} plan items, the JAX "
+                             f"package plans {cfg['jax_plan_items']}")
 
     loop_plan = dataclasses.replace(plan, buckets=None)
     times = {"bucketed": [], "per-step loop": []}
@@ -1166,6 +1205,301 @@ def descent_path(device, smi, cfg):
         raise AssertionError("bp_ground_state: card and CPU disagree, or no descent")
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def tfim_free_fermion(n, h, j=1.0):
+    """Ground energy of the open TFIM ``-J sum ZZ - h sum X`` on ``n`` sites:
+    minus the sum of the positive eigenvalues of the 2N x 2N chiral
+    Bogoliubov matrix ``[[0, B], [B^T, 0]]``, ``B = h 1 + J (superdiagonal)``
+    (numpy ``eigh``, float64)."""
+    import numpy as np
+
+    b = h * np.eye(n) + j * np.eye(n, k=1)
+    m = np.block([[np.zeros((n, n)), b], [b.T, np.zeros((n, n))]])
+    vals = np.linalg.eigvalsh(m)
+    return -float(vals[vals > 0].sum())
+
+
+def _gen(device, seed):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+class SweepSplit:
+    """Synchronizing host-clock timers around the three stages of a
+    ``models.dmrg`` sweep (local solve, SVD split, environment update), and
+    the start of each sweep; the stages sync the card anyway (a host read a
+    solve, cuSOLVER's own syncs), so the timers add little."""
+
+    STAGES = {"_local_ground_penalized": "local solve", "_split_theta": "SVD split",
+              "_update_left": "environments", "_update_right": "environments"}
+
+    def __init__(self, device, n_sites):
+        import importlib
+
+        # the module, not the function the package exports under its name
+        self.mod = importlib.import_module("contractn_tpu_torch.models.dmrg")
+        self.per_sweep = 2 * (n_sites - 1)
+        self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        self.seconds = dict.fromkeys(self.STAGES.values(), 0.0)
+        self.solves, self.marks, self.saved = 0, [], {}
+
+    def __enter__(self):
+        for name, stage in self.STAGES.items():
+            fn = self.saved[name] = getattr(self.mod, name)
+            setattr(self.mod, name, self._timed(fn, stage))
+        return self
+
+    def _timed(self, fn, stage):
+        def run(*args, **kwargs):
+            self.sync()
+            t0 = time.perf_counter()
+            if stage == "local solve":
+                if self.solves % self.per_sweep == 0:
+                    self.marks.append(t0)
+                self.solves += 1
+            out = fn(*args, **kwargs)
+            self.sync()
+            self.seconds[stage] += time.perf_counter() - t0
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        self.sync()
+        self.marks.append(time.perf_counter())
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+    def sweep_seconds(self):
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+def finite_chains(device, smi, sizes=CHAINS):
+    """Phase 8: the DMRG family, TDVP and iTEBD through the user entry points;
+    returns ``{path: (counts, seconds)}``.  Each path runs with every launch
+    count zeroed just before it and read just after; only serving the
+    ground state under ``torch.no_grad()`` may launch a hand kernel (#1,
+    exactly once)."""
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+        return out
+
+    ground = drive("dmrg_spin1", lambda: spin1_dmrg(device, smi, sizes["spin1"]))
+    drive("serve_spin1", lambda: serve_ground_state(device, smi, sizes["spin1"], ground))
+    tfim_ground = drive("dmrg_tfim", lambda: tfim_oracle(device, smi, sizes["tfim"]))
+    drive("dmrg_ensemble", lambda: ensemble_path(device, smi, sizes["ensemble"]))
+    drive("tdvp1_quench", lambda: quench_path(device, smi, sizes["quench"], tfim_ground))
+    drive("itebd", lambda: itebd_path(device, smi, sizes["itebd"]))
+    drive("opsum_heisenberg", lambda: opsum_path(device, smi, sizes["opsum"]))
+    if device.type == "cuda":
+        svd_drivers(device, smi, sizes["svd"])
+    for path, (counts, _) in runs.items():
+        want = {"mps_evaluate": 1} if (path == "serve_spin1" and device.type == "cuda") else {}
+        got = {k: v for k, v in counts.items() if v and "." not in k}
+        if got != want:
+            raise AssertionError(f"path {path}: hand-kernel launches {counts}, want {want}")
+    return runs
+
+
+def spin1_dmrg(device, smi, cfg):
+    """The spin-1 Heisenberg chain built through OpSum, two-site DMRG from a
+    random MPS at the full bond, with the split of each sweep."""
+    from contractn_tpu_torch.models import MPS, OpSum, dmrg, spin_ops
+
+    n, bond = cfg["n_sites"], cfg["bond"]
+    h = OpSum()
+    for i in range(n - 1):
+        h += (1.0, "Sz", i, "Sz", i + 1)
+        h += (0.5, "S+", i, "S-", i + 1)
+        h += (0.5, "S-", i, "S+", i + 1)
+    mpo = h.to_mpo(n, d=3, ops=spin_ops(1), device=device)
+    mps0 = MPS.random(n, 3, bond, dtype=torch.float64,
+                      generator=_gen(device, cfg["seed"]), device=device)
+    with SweepSplit(device, n) as split:
+        ground, energy, trace = dmrg(mpo, mps0, max_bond=bond, sweeps=cfg["sweeps"])
+    sweeps = split.sweep_seconds()
+    total = sum(sweeps)
+    gap = energy - cfg["published"]
+    log(f"  spin-1 Heisenberg (OpSum, W {mpo.cores.shape[3]}), {n} sites, d 3, "
+        f"max_bond {bond}, float64, {cfg['sweeps']} sweeps from a random bond-{bond} "
+        f"MPS: sweep times {', '.join(f'{t:.2f}' for t in sweeps)} s ({smi})")
+    log(f"    energy trace {', '.join(f'{e:.10f}' for e in trace)}; final {energy:.10f}; "
+        f"ITensors.jl's example prints about {cfg['published']}: gap {gap:+.5f}")
+    other = total - sum(split.seconds.values())
+    log("    split of the sweeps: " + ", ".join(
+        f"{k} {v:.2f} s ({100 * v / total:.1f}%)" for k, v in split.seconds.items())
+        + f", other {other:.2f} s ({100 * other / total:.1f}%); "
+        f"{split.solves} local solves, one host read each (the Lanczos tridiagonal "
+        f"or the dense solve's eigenvalue)")
+    if not (math.isfinite(energy) and abs(gap) <= cfg["published_tol"]
+            and trace[-1] <= trace[0] + 1e-9 * abs(trace[0])):
+        raise AssertionError("spin-1 DMRG: energy off the published value")
+    return ground
+
+
+def serve_ground_state(device, smi, cfg, ground):
+    """The ground state's amplitudes on sampled configurations, through
+    ``MPS.evaluate`` under ``torch.no_grad()`` (#1 on the card), held against
+    the plain version with the condition-scaled check."""
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.models.sampling import sample
+    from contractn_tpu_torch.ops.cuda_mps import mps_evaluate_plain
+
+    samples, _ = sample(ground, cfg["serve_batch"], generator=_gen(device, 11))
+    x = torch.nn.functional.one_hot(samples, ground.phys_dim).to(torch.float32)
+    served = MPS(ground.cores.float(), ground.left.float(), ground.right.float())
+    reset_counters()
+    with torch.no_grad():
+        got = served.evaluate(x)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    launches = read_counters()["mps_evaluate"]
+    ref = mps_evaluate_plain(served.cores, served.left, served.right, x)
+    cond = mps_condition(served.cores, served.left, served.right, x)
+    log(f"  served the spin-1 ground state ({ground.n_sites} sites, d 3, bond "
+        f"{ground.bond_dim}, as float32) on {x.shape[0]} sampled configurations: "
+        f"#1 launches {launches}")
+    compare_split(got, ref, TOL_F32, "ground state through #1 vs plain", cond)
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"serving the ground state launched #1 {launches} times")
+
+
+def tfim_oracle(device, smi, cfg):
+    """DMRG on the critical open TFIM chain against the free-fermion energy."""
+    from contractn_tpu_torch.models import MPS, dmrg, tfim_mpo
+
+    n, bond = cfg["n_sites"], cfg["bond"]
+    mps0 = MPS.random(n, 2, bond, dtype=torch.float64,
+                      generator=_gen(device, cfg["seed"]), device=device)
+    t0 = time.perf_counter()
+    ground, energy, trace = dmrg(tfim_mpo(n, h=cfg["h"], device=device), mps0,
+                                 max_bond=bond, sweeps=cfg["sweeps"])
+    secs = time.perf_counter() - t0
+    exact = tfim_free_fermion(n, cfg["h"])
+    rel = abs(energy - exact) / abs(exact)
+    log(f"  TFIM h {cfg['h']}, {n} sites, max_bond {bond}, float64: {cfg['sweeps']} "
+        f"sweeps in {secs:.2f} s ({smi}); energy {energy:.12f} vs free fermions "
+        f"{exact:.12f} (relative {rel:.2e}, tol {cfg['rtol']})")
+    if not rel <= cfg["rtol"]:
+        raise AssertionError("TFIM DMRG disagrees with the free-fermion energy")
+    return ground
+
+
+def ensemble_path(device, smi, cfg):
+    """One batched search over a field scan, each member against its
+    free-fermion energy."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import MPS, dmrg_ensemble, stack_pytrees, tfim_mpo
+
+    k, n, bond = cfg["n_members"], cfg["n_sites"], cfg["bond"]
+    hs = np.linspace(cfg["h"][0], cfg["h"][1], k)
+    gen = _gen(device, cfg["seed"])
+    mpos = stack_pytrees([tfim_mpo(n, h=float(h), device=device) for h in hs])
+    mps0s = stack_pytrees([MPS.random(n, 2, bond, dtype=torch.float64, generator=gen,
+                                      device=device) for _ in hs])
+    t0 = time.perf_counter()
+    _, energies, traces = dmrg_ensemble(mpos, mps0s, sweeps=cfg["sweeps"])
+    energies = energies.cpu().numpy()
+    secs = time.perf_counter() - t0
+    exact = np.array([tfim_free_fermion(n, float(h)) for h in hs])
+    rel = np.abs(energies - exact) / np.abs(exact)
+    log(f"  dmrg_ensemble: {k} TFIM chains, h {hs[0]}..{hs[-1]}, {n} sites, bond "
+        f"{bond}, {cfg['sweeps']} sweeps in one batched call: {secs:.2f} s ({smi}); "
+        f"max relative error vs free fermions {rel.max():.2e} at h {hs[rel.argmax()]:.4f} "
+        f"(tol {cfg['rtol']})")
+    if not (traces.shape == (k, cfg["sweeps"]) and rel.max() <= cfg["rtol"]):
+        raise AssertionError("dmrg_ensemble: a member disagrees with free fermions")
+
+
+def quench_path(device, smi, cfg, ground):
+    """Single-site TDVP of the TFIM ground state under a field quench, in
+    complex128: the norm and the energy are conserved."""
+    from contractn_tpu_torch.models import rayleigh, tdvp1_evolve, tfim_mpo
+
+    mpo = tfim_mpo(ground.n_sites, h=cfg["h"], device=device)
+    e0 = rayleigh(mpo, ground)
+    t0 = time.perf_counter()
+    out, energies = tdvp1_evolve(mpo, ground, cfg["dt"], cfg["steps"])
+    secs = time.perf_counter() - t0
+    norm = float(out.norm_squared(split_format=False).real)
+    drift = max(abs(e - e0) for e in energies) / abs(e0)
+    log(f"  tdvp1_evolve quench h 1 -> {cfg['h']}, {ground.n_sites} sites, bond "
+        f"{ground.bond_dim}, {out.cores.dtype}: {cfg['steps']} steps of dt {cfg['dt']} "
+        f"in {secs:.2f} s ({1e3 * secs / cfg['steps']:.0f} ms a step, {smi}); "
+        f"<psi|psi> - 1 = {norm - 1:.2e} (tol {cfg['norm_tol']}), energy {e0:.10f}, "
+        f"largest relative drift {drift:.2e} (tol {cfg['drift_tol']})")
+    if not (out.cores.dtype == torch.complex128 and abs(norm - 1) <= cfg["norm_tol"]
+            and drift <= cfg["drift_tol"]):
+        raise AssertionError("TDVP quench: norm or energy not conserved")
+
+
+def itebd_path(device, smi, cfg):
+    """iTEBD of the infinite critical TFIM against -4/pi."""
+    from contractn_tpu_torch.models import itebd_ground_state, tfim_bond_term
+
+    t0 = time.perf_counter()
+    state, energy = itebd_ground_state(tfim_bond_term(), cfg["bond"], device=device)
+    secs = time.perf_counter() - t0
+    err = abs(energy + 4 / math.pi)
+    log(f"  itebd_ground_state(tfim, bond {cfg['bond']}), default schedule (1200 "
+        f"steps, 2400 SVDs): {secs:.2f} s ({smi}); energy {energy:.8f} vs -4/pi "
+        f"{-4 / math.pi:.8f} (error {err:.2e}, tol {cfg['tol']})")
+    if not (state["cores"].device.type == device.type and err <= cfg["tol"]):
+        raise AssertionError("iTEBD disagrees with -4/pi")
+
+
+def opsum_path(device, smi, cfg):
+    """An OpSum-built Heisenberg MPO against ``heisenberg_mpo`` on a random
+    state."""
+    from contractn_tpu_torch.models import MPS, OpSum, heisenberg_mpo, rayleigh
+
+    n = cfg["n_sites"]
+    h = OpSum()
+    for i in range(n - 1):  # X X + Y Y = 2 (S+ S- + S- S+) in the Pauli basis
+        h += (2.0, "S+", i, "S-", i + 1)
+        h += (2.0, "S-", i, "S+", i + 1)
+        h += (1.0, "Z", i, "Z", i + 1)
+    t0 = time.perf_counter()
+    built = h.to_mpo(n, device=device)
+    secs = time.perf_counter() - t0
+    psi = MPS.random(n, 2, cfg["bond"], dtype=torch.float64,
+                     generator=_gen(device, cfg["seed"]), device=device)
+    got, want = rayleigh(built, psi), rayleigh(heisenberg_mpo(n, device=device), psi)
+    rel = abs(got - want) / abs(want)
+    log(f"  OpSum Heisenberg, {n} sites: compiled to W {built.cores.shape[3]} in "
+        f"{secs:.2f} s ({smi}); rayleigh {got:.12f} vs heisenberg_mpo {want:.12f} "
+        f"(relative {rel:.1e}, tol {cfg['rtol']})")
+    if not (built.cores.shape[3] == 5 and rel <= cfg["rtol"]):
+        raise AssertionError("OpSum Heisenberg disagrees with heisenberg_mpo")
+
+
+def svd_drivers(device, smi, cfg):
+    """The two-site split's SVD at its bulk size (d 3, D 128: 384 x 384,
+    float64) under each of cuSOLVER's drivers."""
+    rows = cfg["rows"]
+    a = torch.randn((rows, rows), dtype=torch.float64, device=device,
+                    generator=_gen(device, 12))
+    times = {}
+    for driver in (None, "gesvdj", "gesvda"):
+        times[driver or "default"] = cuda_time(
+            lambda: torch.linalg.svd(a, full_matrices=False, driver=driver),
+            reps=cfg["reps"])
+    log(f"  torch.linalg.svd {rows} x {rows} float64 (CUDA events, median of "
+        f"{cfg['reps']}): " + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+        + f" ({smi})")
+
+
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -1281,6 +1615,9 @@ def main():
         log(f"  path {path}: {secs:.3f} s, launches {counts}")
     log("== 7. graph paths")
     for path, (counts, secs) in graph_paths(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log("== 8. finite chains")
+    for path, (counts, secs) in finite_chains(device, smi).items():
         log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@ from .chain import (
 from .cuda_epilogue import epilogue_chain, mps_evaluate_epilogue
 from .cuda_mpo import make_mpo_cuda_fn, mpo_env, mpo_expectation_cuda
 from .cuda_mps import cuda_mps_evaluate
+from .krylov import lanczos_basis, lanczos_ground, masked_tridiagonal
 from .scan import (
     mps_evaluate,
     mps_evaluate_auto,
@@ -23,6 +24,9 @@ __all__ = [
     "cuda_mps_evaluate",
     "destabilize",
     "epilogue_chain",
+    "lanczos_basis",
+    "lanczos_ground",
+    "masked_tridiagonal",
     "make_mpo_cuda_fn",
     "mpo_env",
     "mpo_expectation_cuda",

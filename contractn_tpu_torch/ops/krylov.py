@@ -1,0 +1,220 @@
+"""Shared Lanczos and Arnoldi machinery.
+
+Counterpart of ``contractn_tpu/ops/krylov.py``: one implementation of the
+subtle parts — double Gram-Schmidt reorthogonalization, branchless
+Krylov-exhaustion masking and the well-conditioned tridiagonal assembly —
+consumed by the DMRG ground and penalized solvers and the TDVP Krylov
+exponentials.
+
+The JAX package runs each factorization as one ``lax.fori_loop``; here it is
+a Python loop of a FIXED ``iters`` steps over device tensors.  Exhaustion is
+masked with ``torch.where`` and never read on the host, so the loop issues
+no host sync and gives the JAX package's results (breaking out early would
+read ``beta`` every step and change them).
+
+Every function takes ``batch_ndim``: that many leading axes of ``v0`` are a
+batch of independent problems (``matvec`` maps the batched tensor to the
+batched tensor), with per-member norms, exhaustion masks and tridiagonals —
+the batched form :mod:`..models.ensemble` runs its Hamiltonian ensembles
+through.
+
+``axis_name`` (inner products summed over a mesh axis in the JAX package)
+raises :class:`TNError` until this package has its mesh layer.
+"""
+
+import numpy as np
+import torch
+
+from ..utils.device import real_dtype
+from ..utils.errors import TNError
+from .stabilize import peinsum
+
+
+def _check_axis(axis_name):
+    if axis_name is not None:
+        raise TNError(
+            "axis_name= (Krylov vectors sharded over a mesh axis) needs the "
+            "mesh layer, which this package does not have yet"
+        )
+
+
+def _norm(x):
+    """2-norm over the last axis."""
+    return torch.sqrt(torch.real(peinsum("...d,...d->...", x.conj(), x)))
+
+
+def _orthogonalize(basis, w):
+    """Two Gram-Schmidt passes of ``w`` against every row of ``basis``
+    ("twice is enough", Parlett: one pass leaves an ``eps ||w|| / beta``
+    rogue component near exhaustion).  Rows not yet filled are zero, so
+    masking is implicit.  Returns ``(w, summed coefficients)``."""
+    coeffs = 0
+    for _ in range(2):
+        proj = peinsum("...kd,...d->...k", basis.conj(), w)
+        w = w - peinsum("...k,...kd->...d", proj, basis)
+        coeffs = coeffs + proj
+    return w, coeffs
+
+
+def lanczos_basis(matvec, v0, iters, axis_name=None, project=None,
+                  batch_ndim=0):
+    """Lanczos factorization: returns ``(basis, alphas, betas, nrm0)``.
+
+    ``basis (*batch, iters + 1, dim)`` rows are the Krylov vectors (zero rows
+    after exhaustion), ``alphas`` carry 1e30 markers on exhausted steps (feed
+    them to :func:`masked_tridiagonal`, never to ``eigh`` directly), and
+    ``nrm0`` is ``|v0|`` (the basis starts from ``v0 / nrm0``).
+
+    ``project`` restricts the iteration to an invariant subspace: it is
+    applied to ``v0`` and to every new Krylov vector AFTER
+    reorthogonalization.  Ending the matvec with a dense projector is not
+    enough: each application leaves an ``eps``-relative out-of-subspace
+    residual that Gram-Schmidt re-injects, growing geometrically.
+    """
+    _check_axis(axis_name)
+    batch = tuple(v0.shape[:batch_ndim])
+    shape = tuple(v0.shape[batch_ndim:])
+    dt = v0.dtype
+    rdt = real_dtype(dt)
+    if project is not None:
+        v0 = project(v0)
+    flat = v0.reshape(batch + (-1,))
+    dim = flat.shape[-1]
+    nrm0 = torch.clamp(_norm(flat), min=1e-300)
+    basis = torch.zeros(batch + (iters + 1, dim), dtype=dt, device=v0.device)
+    basis[..., 0, :] = flat / nrm0[..., None]
+    alphas = torch.full(batch + (iters,), float("inf"), dtype=rdt,
+                        device=v0.device)
+    betas = torch.zeros(batch + (iters,), dtype=rdt, device=v0.device)
+    exhausted = torch.zeros(batch, dtype=torch.bool, device=v0.device)
+    marker = torch.tensor(1e30, dtype=rdt, device=v0.device)
+    for j in range(iters):
+        v = basis[..., j, :]
+        hv = matvec(v.reshape(batch + shape)).reshape(batch + (dim,))
+        alpha = torch.real(peinsum("...d,...d->...", v.conj(), hv))
+        hv, _ = _orthogonalize(basis, hv)
+        if project is not None:
+            hv = project(hv.reshape(batch + shape)).reshape(batch + (dim,))
+        beta = _norm(hv)
+        alive = ~exhausted & (beta > 1e-12)
+        basis[..., j + 1, :] = torch.where(
+            alive[..., None], hv / torch.clamp(beta, min=1e-300)[..., None],
+            torch.zeros_like(hv))
+        alphas[..., j] = torch.where(exhausted, marker, alpha)
+        betas[..., j] = torch.where(alive, beta, torch.zeros_like(beta))
+        exhausted = ~alive
+    return basis, alphas, betas, nrm0
+
+
+def masked_tridiagonal(alphas, betas):
+    """Lanczos tridiagonal with exhausted steps pushed out of the way.
+
+    Exhausted steps carry a 1e30 diagonal marker; fed to ``eigh`` directly it
+    would destroy the valid eigenvalues (absolute error ``||T|| eps``).  The
+    marker is remapped to a value that dominates the valid spectrum by ~1e4
+    but keeps the matrix well-conditioned; the masked block's eigenvectors
+    have exactly zero overlap with ``e1`` (its couplings are zero).  Leading
+    axes of ``alphas``/``betas`` are batch axes.
+    """
+    valid = alphas < 1e29
+    scale = torch.where(valid, alphas.abs(), torch.zeros_like(alphas)).amax(-1)
+    scale = torch.maximum(scale, betas.abs().amax(-1))
+    big = 1e4 * (1.0 + scale)
+    diag = torch.where(valid, alphas, big[..., None])
+    off = betas[..., :-1]
+    return (torch.diag_embed(diag) + torch.diag_embed(off, 1)
+            + torch.diag_embed(off, -1))
+
+
+def tridiagonal_eigh(alphas, betas):
+    """``eigh`` of :func:`masked_tridiagonal`, on the host: ``(vals, vecs)``
+    as float64 numpy arrays (leading batch axes kept).
+
+    The ``(iters,)`` coefficients are read to the host once and solved in
+    numpy (no slower than cuSOLVER for one small matrix, faster for a batch,
+    and ``torch.linalg.eigh`` would synchronize with the host anyway).  The
+    read also yields the energy, so a local solve reads the host once.
+    """
+    tri = masked_tridiagonal(alphas, betas)
+    return np.linalg.eigh(tri.detach().cpu().double().numpy())
+
+
+def lanczos_ground(matvec, v0, iters, axis_name=None, project=None,
+                   batch_ndim=0):
+    """Lowest eigenpair of a Hermitian operator via :func:`lanczos_basis`.
+
+    Returns ``(energy, vector)``: the energy as a float (a float64 numpy
+    array for a batch; the one host read of the solve) and the vector
+    normalized per batch member.  ``project`` confines the iteration to an
+    invariant subspace (see :func:`lanczos_basis`).
+    """
+    basis, alphas, betas, _ = lanczos_basis(matvec, v0, iters, axis_name,
+                                            project=project,
+                                            batch_ndim=batch_ndim)
+    vals, vecs = tridiagonal_eigh(alphas, betas)
+    coeff = torch.from_numpy(vecs[..., :, 0]).to(v0.device, v0.dtype)
+    vec = peinsum("...k,...kd->...d", coeff, basis[..., :-1, :])
+    vec = vec / torch.clamp(_norm(vec), min=1e-300)[..., None]
+    energy = vals[..., 0]
+    return (float(energy) if batch_ndim == 0 else energy), vec.reshape(v0.shape)
+
+
+def arnoldi_basis(matvec, v0, iters, axis_name=None):
+    """Arnoldi factorization of a NONSYMMETRIC operator.
+
+    Returns ``(basis, h, nrm0)`` with ``basis (iters + 1, dim)`` orthonormal
+    Krylov rows and ``h (iters + 1, iters)`` the upper-Hessenberg projection,
+    ``A V_m = V_{m+1} H``.  Breakdown (an exact invariant subspace) zeroes
+    the subdiagonal entry and all later rows and columns; detect it on the
+    host via ``h[j + 1, j] == 0``.  Reorthogonalizes twice, like
+    :func:`lanczos_basis`, with no host sync in the loop.
+    """
+    _check_axis(axis_name)
+    shape = v0.shape
+    dt = v0.dtype
+    flat = v0.reshape(-1)
+    dim = flat.shape[0]
+    nrm0 = torch.clamp(_norm(flat), min=1e-300)
+    basis = torch.zeros((iters + 1, dim), dtype=dt, device=v0.device)
+    basis[0] = flat / nrm0
+    h = torch.zeros((iters + 1, iters), dtype=dt, device=v0.device)
+    exhausted = torch.zeros((), dtype=torch.bool, device=v0.device)
+    for j in range(iters):
+        w = matvec(basis[j].reshape(shape)).reshape(-1)
+        w, coeffs = _orthogonalize(basis, w)
+        beta = _norm(w)
+        alive = ~exhausted & (beta > 1e-12)
+        h[:, j] = torch.where(exhausted, torch.zeros_like(coeffs), coeffs)
+        h[j + 1, j] = torch.where(alive, beta.to(dt), torch.zeros_like(h[j + 1, j]))
+        basis[j + 1] = torch.where(
+            alive, w / torch.clamp(beta, min=1e-300), torch.zeros_like(w))
+        exhausted = ~alive
+    return basis, h, nrm0
+
+
+def arnoldi_eigs(matvec, v0, iters, k=2):
+    """Leading ``k`` eigenvalues (by magnitude) of a nonsymmetric operator,
+    plus the Ritz vector of the dominant one.
+
+    The ``iters`` matvecs and Gram-Schmidt sweeps run on the operator's
+    device; only the ``(iters, iters)`` Hessenberg eigenproblem runs on the
+    host (numpy), so the host work is independent of the operator's size.
+
+    Returns ``(vals, lead_vec)``: ``vals (k,)`` complex numpy, sorted by
+    descending magnitude (conjugate pairs +Im first; zero-padded past a
+    breakdown); ``lead_vec`` a numpy array of ``v0``'s shape.
+    """
+    basis, h, _ = arnoldi_basis(matvec, v0, iters)
+    h_np = h.cpu().numpy()
+    basis_np = basis.cpu().numpy()
+    m = iters
+    dead = np.nonzero(np.abs(np.diagonal(h_np[1:, :])) == 0.0)[0]
+    if dead.size:
+        m = int(dead[0]) + 1  # exact invariant subspace of size m
+    vals, vecs = np.linalg.eig(h_np[:m, :m])
+    order = np.lexsort((-vals.imag, -np.abs(vals)))
+    vals = vals[order]
+    lead = np.matmul(basis_np[:m].T, vecs[:, order[0]]).reshape(tuple(v0.shape))
+    out = np.zeros((k,), complex)
+    out[: min(k, m)] = vals[:k]
+    return out, lead

@@ -129,3 +129,41 @@ def test_training_steps_stay_on_gpu(cuda_device):
     trained, losses = fit_born_machine(model, data, steps=1, lr=1e-3)
     assert {t.device.type for t in (trained.cores, trained.left, trained.right, losses)} == {
         "cuda"}
+
+
+# Phase 8 of chip_smoke.py at a reduced depth: the exact 10-site spin-1 ground
+# energy (-12.8945601, sparse exact diagonalization) stands in for the
+# published 100-site value; bond 24 truncates it by about 3e-5 (-12.8945313
+# on the CPU)
+CHAINS_SMALL = {
+    "spin1": {"n_sites": 10, "bond": 24, "sweeps": 4, "serve_batch": 256,
+              "published": -12.8945601, "published_tol": 1e-4, "seed": 3},
+    "tfim": {"n_sites": 24, "h": 1.0, "bond": 24, "sweeps": 4, "rtol": 1e-8, "seed": 4},
+    "ensemble": {"n_members": 8, "h": (0.5, 1.5), "n_sites": 12, "bond": 16,
+                 "sweeps": 4, "rtol": 1e-7, "seed": 5},
+    "quench": {"h": 0.5, "dt": 0.05, "steps": 3, "drift_tol": 1e-7, "norm_tol": 1e-10},
+    "itebd": {"bond": 16, "tol": 5e-4},
+    "opsum": {"n_sites": 24, "bond": 8, "rtol": 1e-10, "seed": 6},
+    "svd": {"rows": 96, "reps": 3},
+}
+
+
+@pytest.mark.cuda
+def test_finite_chains_on_gpu(cuda_device):
+    # every phase-8 check, and #1 launched exactly once (serving the ground
+    # state) while no other path launches a hand kernel
+    runs = chip_smoke.finite_chains(cuda_device, "test", CHAINS_SMALL)
+    assert runs["serve_spin1"][0]["mps_evaluate"] == 1
+
+
+@pytest.mark.cuda
+def test_contract_gradient_lands_on_the_operand_device(cuda_device):
+    import contractn_tpu_torch as ttn
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    a = torch.randn((3, 4), generator=gen, device=cuda_device, requires_grad=True)
+    b = torch.randn((4, 5), generator=gen, device=cuda_device)
+    out = ttn.contract("ab,bc->ac", a, b)
+    (grad,) = torch.autograd.grad(out.sum(), a)
+    assert out.device.type == grad.device.type == "cuda"
+    torch.testing.assert_close(grad, b.sum(1).expand(3, 4))

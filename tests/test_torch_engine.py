@@ -135,8 +135,11 @@ def test_explicit_path_and_strategies():
     np.testing.assert_allclose(got, ref, rtol=RTOL)
     got_g = ttn.contract("ab,bc,cd->ad", *ops, optimize="greedy", device="cpu")
     np.testing.assert_allclose(got_g.numpy(), ref, rtol=RTOL)
+    got_o = ttn.contract("ab,bc,cd->ad", *ops, optimize="optimal", device="cpu")
+    ref_o = jtn.contract("ab,bc,cd->ad", *ops, optimize="optimal")
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(ref_o), rtol=RTOL)
     with pytest.raises(ttn.TNError, match="not available"):
-        ttn.contract("ab,bc,cd->ad", *ops, optimize="optimal", device="cpu")
+        ttn.contract("ab,bc,cd->ad", *ops, optimize="random-greedy", device="cpu")
     with pytest.raises(ttn.TNError):
         ttn.contract("ab,bc,cd->ad", *ops, optimize=[(0, 1)], device="cpu")
 

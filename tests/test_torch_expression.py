@@ -159,7 +159,7 @@ def test_native_greedy_raises_when_unavailable(monkeypatch):
                      device="cpu")
     with pytest.raises(ttn.TNError, match="not available"):
         ttn.contract("ab,bc,cd->ad", *[np.ones((2, 2))] * 3,
-                     optimize="optimal", device="cpu")
+                     optimize="random-greedy", device="cpu")
 
 
 def _grid_tn(mod, seed=2):

@@ -147,11 +147,29 @@ def _imports(tree):
             yield node.module
 
 
-def test_port_imports_no_jax_and_never_enables_tf32():
-    files = sorted(PORT.rglob("*.py")) + [
+def _port_files():
+    """Every Python file of the port, its smoke script and its scripts."""
+    return sorted(PORT.rglob("*.py")) + [
         PORT.parent / "chip_smoke.py",
         PORT.parent / "scripts" / "profile_training_cuda.py",
+        PORT.parent / "scripts" / "profile_chains_cuda.py",
     ]
+
+
+def test_scans_cover_every_ported_module():
+    scanned = {p.relative_to(PORT).as_posix() for p in _port_files()
+               if PORT in p.parents}
+    for module in ("compiler/paths.py", "ops/krylov.py", "models/mpo.py",
+                   "models/dmrg.py", "models/autompo.py", "models/ensemble.py",
+                   "models/tdvp.py", "models/dmrgx.py", "models/dmrg3s.py",
+                   "models/itebd.py", "models/circuits.py", "models/linsolve.py",
+                   "models/chebyshev.py"):
+        assert module in scanned, module
+    assert all(p.is_file() for p in _port_files())
+
+
+def test_port_imports_no_jax_and_never_enables_tf32():
+    files = _port_files()
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -179,7 +197,7 @@ def test_port_imports_no_jax_and_never_enables_tf32():
 def test_port_needs_no_opt_einsum_or_networkx():
     """opt_einsum is imported nowhere in the port, networkx only inside the
     method that exports to it (neither is installed beside the card)."""
-    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    files = _port_files()
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
