@@ -61,10 +61,26 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    ``tdvp1_evolve`` of the TFIM ground state under a field quench in
    complex128 (norm and energy conserved); ``itebd_ground_state`` at bond 32
    against -4/pi; an ``OpSum`` Heisenberg MPO against ``heisenberg_mpo``;
-   and the split's 384 x 384 float64 SVD under cuSOLVER's drivers.
+   and the split's 384 x 384 float64 SVD under cuSOLVER's drivers;
+9. physics chains (``PHYSICS``): charge-masked DMRG of the half-filled 6 x 3
+   Hubbard strip (36 spin-orbitals, bond 128 halved while two sweeps' class
+   SVDs would not fit the budget; C, each sweep's time and the split's
+   share; monotone energies, ``cores * (1 - masks) == 0`` exactly, the
+   sector's particle numbers) and its 3 x 2 anchor against sector ED; the
+   ground state served as float32 on 4096 ``sample_canonical`` draws
+   through #1 (one launch, held against the plain version); TCI of a
+   damped cosine on 2^40 points (integral against the closed form of the
+   Riemann sum) and the QFT of its 16-bit samples against numpy.fft;
+   ``quantics_to_dense`` of the 20-bit quantics MPS as float32 through #1
+   (one launch; against the plain version and the float64 samples; #1's
+   time at that shape beside its bound); W^II Lindblad evolution of the
+   dephased 20-site XXZ chain, the batched correction-vector grid (32
+   frequencies) on a 32-site Heisenberg ground state and a 64-trajectory
+   MCWF ensemble, each card against CPU; no other path launches a kernel.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
-last ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
+last ``{"ok": true, "device": {...}}``.  ``--physics-only`` runs phases 1, 2
+and 9 alone and prints neither.  Without a GPU, or without the
 package beside this file, it exits nonzero and prints no result.
 """
 
@@ -161,6 +177,74 @@ CHAINS = {
     "itebd": {"bond": 32, "tol": 5e-4},
     "opsum": {"n_sites": 100, "bond": 16, "rtol": 1e-10, "seed": 6},
     "svd": {"rows": 384, "reps": 5},
+}
+# Physics chains (phase 9).  HUBBARD: the half-filled (9 up, 9 down) 6 x 3
+# open strip of 36 spin-orbitals at ITensors.jl's 2D Hubbard example's
+# lattice and couplings (Nx 6, Ny 3, U 4, t 1; the example is a cylinder and
+# hubbard2d_mpo builds open strips, so its energy is no oracle here), by
+# charge-masked DMRG at bond 128, halved while two sweeps' class SVDs would
+# not fit the budget; ANCHOR: the 3 x 2 sector against exact
+# diagonalization.  TCI: exp(-x) cos(2 pi 50 x) on 2^40 points against the
+# closed form of its Riemann sum, and the QFT of its 16-bit samples against
+# numpy.fft.  DENSE: the 20-bit quantics MPS evaluated on every grid point
+# through #1.  LINDBLAD: the dephased XXZ chain by W^II, card against CPU,
+# 10 steps (not 20: the CPU run of 10 already takes about 50 s).  The trace
+# is an overlap with vec(I), whose norm is 2^(n/2): a 2-norm rounding of
+# rho of relative size e moves it by up to e 2^(n/2) ||rho|| (about 2e-11 a
+# step at 20 sites on the card, growing with the bond, while the discarded
+# weight stays below 1e-12), so its tolerance is scaled by that condition
+# number, as the kernels' agreement is.
+# CV: the batched correction-vector grid on a 32-site Heisenberg ground
+# state, card against CPU at every 8th frequency (each frequency is an
+# independent member of the batch; the CPU takes 77 s for all 32 at CG 16).
+# At eta 0.1 the local systems (K^2 + eta^2) have condition numbers near
+# 1e5, the fixed-depth CG does not converge, and the truncated ALS result
+# is determined only to about 1e-7..1e-5 in float64 (a 1e-15 relative
+# perturbation of the ground state moves it that far on a CPU), so the card
+# must agree with the CPU to 1e-8 or to ten times that spread, measured in
+# the same run.  MCWF: a trajectory ensemble of the damped TFIM, card
+# against CPU on the same host draws; 32 trajectories, not 64 (64 took 55 s
+# on the card and 31 s on the CPU).  The bond cap 16 binds (bond 64 moves a
+# trajectory's record by 3e-5), so the truncated result is determined only
+# as far as near-degenerate singular values at the cut allow: the card must
+# agree with the CPU to 1e-10 or to ten times the CPU's own spread under a
+# 1e-15 nudge of the start, measured in the same run, with equal jump
+# counts.
+PHYSICS = {
+    "hubbard": {"lx": 6, "ly": 3, "n_up": 9, "n_dn": 9, "t": 1.0, "u": 4.0,
+                "bond": 128, "min_bond": 16, "sweeps": 2, "budget_s": 90.0,
+                "lanczos_iters": 40, "seed": 21, "serve_batch": 4096,
+                "anchor": {"lx": 3, "ly": 2, "n_up": 3, "n_dn": 3, "bond": 96,
+                           "sweeps": 2, "tol": 1e-8}},
+    "tci": {"n_bits": 40, "freq": 50.0, "max_bond": 16, "tol": 1e-10, "rtol": 1e-9,
+            "qft_bits": 16, "qft_tol": 1e-10},
+    "dense": {"n_bits": 20, "freq": 50.0, "tol": 1e-5},
+    "lindblad": {"n_sites": 20, "steps": 10, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
+                 "max_bond": 64, "trace_tol": 1e-10, "tol": 1e-10},
+    "cv": {"n_sites": 32, "bond": 32, "dmrg_sweeps": 4, "n_omegas": 32,
+           "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 2, "cg_iters": 64,
+           "cpu_every": 8, "tol": 1e-8, "seed": 22},
+    "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 10, "t": 1.0, "h": 1.0,
+             "gamma": 0.2, "max_bond": 16, "tol": 1e-10, "seed": 23},
+}
+# The same paths at a size the CPU rehearses in seconds
+# (tests/test_torch_dynamical.py)
+PHYSICS_TINY = {
+    "hubbard": {"lx": 2, "ly": 2, "n_up": 2, "n_dn": 2, "t": 1.0, "u": 4.0,
+                "bond": 32, "min_bond": 16, "sweeps": 2, "budget_s": 60.0,
+                "lanczos_iters": 30, "seed": 21, "serve_batch": 64,
+                "anchor": {"lx": 2, "ly": 1, "n_up": 1, "n_dn": 1, "bond": 8,
+                           "sweeps": 2, "tol": 1e-8}},
+    "tci": {"n_bits": 24, "freq": 5.0, "max_bond": 8, "tol": 1e-10, "rtol": 1e-9,
+            "qft_bits": 6, "qft_tol": 1e-10},
+    "dense": {"n_bits": 8, "freq": 5.0, "tol": 1e-5},
+    "lindblad": {"n_sites": 4, "steps": 2, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
+                 "max_bond": 16, "trace_tol": 1e-10, "tol": 1e-10},
+    "cv": {"n_sites": 6, "bond": 4, "dmrg_sweeps": 2, "n_omegas": 3,
+           "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 1, "cg_iters": 4,
+           "cpu_every": 2, "tol": 1e-8, "seed": 22},
+    "mcwf": {"n_sites": 4, "n_traj": 3, "steps": 3, "t": 0.3, "h": 1.0,
+             "gamma": 0.2, "max_bond": 4, "tol": 1e-10, "seed": 23},
 }
 TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
 TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
@@ -1500,6 +1584,450 @@ def svd_drivers(device, smi, cfg):
 
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+class U1SplitTimer:
+    """Synchronizing host-clock timers around the charge-aligned split of
+    ``models.u1`` (one batched SVD of the C class-masked blocks) and the
+    start of each sweep of the masked DMRG."""
+
+    def __init__(self, device, n_sites):
+        import importlib
+
+        self.mod = importlib.import_module("contractn_tpu_torch.models.u1")
+        self.per_sweep = 2 * (n_sites - 1)
+        self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        self.split_s, self.calls, self.marks, self.saved = 0.0, 0, [], None
+
+    def __enter__(self):
+        self.saved = self.mod._u1_splitter
+
+        def timed_factory(*args):
+            inner = self.saved(*args)
+
+            def splitter(theta, i, to_left):
+                self.sync()
+                t0 = time.perf_counter()
+                if self.calls % self.per_sweep == 0:
+                    self.marks.append(t0)
+                self.calls += 1
+                out = inner(theta, i, to_left)
+                self.sync()
+                self.split_s += time.perf_counter() - t0
+                return out
+            return splitter
+
+        self.mod._u1_splitter = timed_factory
+        return self
+
+    def __exit__(self, *exc):
+        self.sync()
+        self.marks.append(time.perf_counter())
+        self.mod._u1_splitter = self.saved
+
+    def sweep_seconds(self):
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+def physics_chains(device, smi, sizes=PHYSICS):
+    """Phase 9: the U(1) layer, quantics and TCI, open systems and
+    correction vectors through the user entry points; returns ``{path:
+    (counts, seconds)}``.  Each path runs with every launch count zeroed
+    just before it and read just after; only serving the Hubbard ground
+    state and evaluating the 20-bit quantics MPS may launch a hand kernel
+    (#1, exactly once each)."""
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+        return out
+
+    ground = drive("hubbard_sector", lambda: hubbard_path(device, smi, sizes["hubbard"]))
+    drive("serve_hubbard", lambda: serve_hubbard(device, smi, sizes["hubbard"], ground))
+    drive("quantics_tci", lambda: quantics_tci_path(device, smi, sizes["tci"]))
+    dense = drive("quantics_dense", lambda: quantics_dense_path(device, smi, sizes["dense"]))
+    if device.type == "cuda":
+        time_quantics_kernel(smi, *dense)
+    drive("lindblad_wii", lambda: lindblad_path(device, smi, sizes["lindblad"]))
+    drive("cv_spectral", lambda: cv_path(device, smi, sizes["cv"]))
+    drive("mcwf", lambda: mcwf_path(device, smi, sizes["mcwf"]))
+    served = ("serve_hubbard", "quantics_dense")
+    for path, (counts, _) in runs.items():
+        want = {"mps_evaluate": 1} if (path in served and device.type == "cuda") else {}
+        got = {k: v for k, v in counts.items() if v and "." not in k}
+        if got != want:
+            raise AssertionError(f"path {path}: hand-kernel launches {counts}, want {want}")
+    return runs
+
+
+def hubbard_bond(device, cfg):
+    """The largest bond, from ``cfg["bond"]`` down by halving, whose two
+    sweeps of class SVDs fit half the budget: the split at the middle bond
+    is timed at each candidate.  Returns ``(bond, C)``."""
+    from contractn_tpu_torch.models import hubbard_phys_charges, u1
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    phys, a = hubbard_phys_charges(cfg["lx"], cfg["ly"])
+    n = 2 * cfg["lx"] * cfg["ly"]
+    bond = cfg["bond"]
+    while True:
+        charges = u1.u1_bond_charges(n, phys, cfg["n_up"] * a + cfg["n_dn"], bond)
+        split = u1._split_masks(charges, phys, device)
+        splitter = u1._u1_splitter(split, 2, bond)
+        theta = torch.randn((2, 2, bond, bond), dtype=torch.float64, device=device,
+                            generator=_gen(device, 5))
+        mid = n // 2 - 1
+        splitter(theta, mid, True)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        splitter(theta, mid, True)
+        sync()
+        secs = time.perf_counter() - t0
+        n_cls = split[0].shape[1]
+        est = secs * 2 * (n - 1) * cfg["sweeps"]
+        log(f"  U(1) split at bond {bond}: C = {n_cls} charge classes, one batched "
+            f"torch.linalg.svd of {n_cls} x {2 * bond} x {2 * bond} float64 in "
+            f"{1e3 * secs:.1f} ms; {cfg['sweeps']} sweeps' {2 * (n - 1)} splits each "
+            f"~{est:.1f} s (half the budget: {0.5 * cfg['budget_s']:.0f} s)")
+        if est <= 0.5 * cfg["budget_s"] or bond // 2 < cfg["min_bond"]:
+            return bond, n_cls
+        log(f"    over budget: bond {bond} -> {bond // 2}")
+        bond //= 2
+
+
+def hubbard_path(device, smi, cfg):
+    """Charge-masked DMRG of the half-filled Hubbard strip: per-sweep times
+    and the split's share, monotone energies, the exact mask identity, the
+    sector's particle numbers, and the small anchor against sector ED."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (hubbard_dmrg_sector, hubbard_sector_ed,
+                                            spin_densities)
+
+    lx, ly, nu, nd = cfg["lx"], cfg["ly"], cfg["n_up"], cfg["n_dn"]
+    n = 2 * lx * ly
+    bond, n_cls = hubbard_bond(device, cfg)
+    with U1SplitTimer(device, n) as timer:
+        mps, energy, energies, masks = hubbard_dmrg_sector(
+            lx, ly, nu, nd, bond, t=cfg["t"], u=cfg["u"], sweeps=cfg["sweeps"],
+            lanczos_iters=cfg["lanczos_iters"], generator=_gen(device, cfg["seed"]),
+            device=device)
+    sweeps = timer.sweep_seconds()
+    total = sum(sweeps)
+    trace = energies.cpu().numpy()
+    leak = int(torch.count_nonzero(mps.cores * (1 - masks)))
+    up, dn = spin_densities(mps, lx, ly)
+    log(f"  hubbard_dmrg_sector {lx} x {ly}, N_up {nu}, N_dn {nd} ({n} spin-orbitals), "
+        f"t {cfg['t']}, U {cfg['u']}, bond {bond}, C = {n_cls}, float64, "
+        f"{cfg['sweeps']} sweeps: sweep times {', '.join(f'{s:.2f}' for s in sweeps)} s "
+        f"({smi}); the split's share {100 * timer.split_s / total:.1f}% "
+        f"({timer.split_s:.2f} s, {timer.calls} batched SVD calls)")
+    log(f"    energy trace {', '.join(f'{e:.10f}' for e in trace)}; entries outside "
+        f"the masks {leak}; sum <n_up> {up.sum():.12f}, sum <n_dn> {dn.sum():.12f}")
+    monotone = all(b <= a + 1e-10 * abs(a) for a, b in zip(trace, trace[1:]))
+    if not (monotone and leak == 0 and abs(up.sum() - nu) <= 1e-10
+            and abs(dn.sum() - nd) <= 1e-10 and np.isfinite(trace).all()):
+        raise AssertionError("Hubbard sector DMRG: energies, masks or densities off")
+    an = cfg["anchor"]
+    t0 = time.perf_counter()
+    _, e_anchor, _, _ = hubbard_dmrg_sector(
+        an["lx"], an["ly"], an["n_up"], an["n_dn"], an["bond"], t=cfg["t"], u=cfg["u"],
+        sweeps=an["sweeps"], lanczos_iters=cfg["lanczos_iters"],
+        generator=_gen(device, cfg["seed"] + 1), device=device)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_ed = hubbard_sector_ed(an["lx"], an["ly"], an["n_up"], an["n_dn"], cfg["t"], cfg["u"])
+    secs_ed = time.perf_counter() - t0
+    gap = abs(float(e_anchor) - e_ed)
+    log(f"    anchor {an['lx']} x {an['ly']} (N_up {an['n_up']}, N_dn {an['n_dn']}), bond "
+        f"{an['bond']}, {an['sweeps']} sweeps: {float(e_anchor):.12f} in {secs:.2f} s vs "
+        f"sector ED {e_ed:.12f} ({secs_ed:.1f} s on the host): |dE| {gap:.2e} "
+        f"(tol {an['tol']})")
+    if gap > an["tol"]:
+        raise AssertionError("Hubbard anchor disagrees with sector ED")
+    return mps
+
+
+def serve_hubbard(device, smi, cfg, ground):
+    """The Hubbard ground state as float32 on configurations drawn by
+    ``sample_canonical``, through ``MPS.evaluate`` under ``torch.no_grad()``
+    (#1 on the card), held against the plain version."""
+    from contractn_tpu_torch.models import MPS, right_canonicalize, sample_canonical
+    from contractn_tpu_torch.ops.cuda_mps import mps_evaluate_plain
+
+    rc, _ = right_canonicalize(ground)
+    samples, _ = sample_canonical(rc, cfg["serve_batch"], generator=_gen(device, 13))
+    x = torch.nn.functional.one_hot(samples, ground.phys_dim).to(torch.float32)
+    served = MPS(ground.cores.float(), ground.left.float(), ground.right.float())
+    with torch.no_grad():
+        got = served.evaluate(x)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    launches = read_counters()["mps_evaluate"]
+    ref = mps_evaluate_plain(served.cores, served.left, served.right, x)
+    cond = mps_condition(served.cores, served.left, served.right, x)
+    log(f"  served the Hubbard ground state ({ground.n_sites} sites, d 2, bond "
+        f"{ground.bond_dim}, as float32) on {x.shape[0]} configurations from "
+        f"sample_canonical: #1 launches {launches}")
+    compare_split(got, ref, TOL_F32, "Hubbard ground state through #1 vs plain", cond)
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"serving the Hubbard state launched #1 {launches} times")
+
+
+def _damped_cosine(freq):
+    import numpy as np
+
+    w = 2 * np.pi * freq
+    return lambda x: np.exp(-x) * np.cos(w * x)
+
+
+def quantics_tci_path(device, smi, cfg):
+    """TCI on a 2^40-point grid: its integral against the closed form of the
+    Riemann sum; the QFT of the 16-bit samples against numpy.fft."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (function_mps, function_tci, qft_mps,
+                                            quantics_integral, quantics_to_dense)
+
+    f = _damped_cosine(cfg["freq"])
+    n = cfg["n_bits"]
+    t0 = time.perf_counter()
+    mps, info = function_tci(f, n, max_bond=cfg["max_bond"], tol=cfg["tol"],
+                             device=device)
+    got = quantics_integral(mps).real
+    secs = time.perf_counter() - t0
+    # sum_j dx e^{z x_j}, z = -1 + 2 pi i freq: a geometric series
+    z = complex(-1.0, 2 * np.pi * cfg["freq"])
+    dx = 2.0 ** -n
+    exact = (dx * (1 - np.exp(z)) / -np.expm1(z * dx)).real
+    rel = abs(got - exact) / abs(exact)
+    log(f"  function_tci exp(-x) cos(2 pi {cfg['freq']:g} x) on 2^{n} points: ranks "
+        f"max {max(info.ranks)}, {info.n_evals} evaluations, {info.sweeps} sweeps, "
+        f"certified error {info.error:.1e}, in {secs:.2f} s ({smi}); integral "
+        f"{got:.15e} vs closed form {exact:.15e} (relative {rel:.1e}, tol {cfg['rtol']})")
+    nq = cfg["qft_bits"]
+    t0 = time.perf_counter()
+    q = qft_mps(function_mps(f, nq, device=device))
+    vals = quantics_to_dense(q).cpu().numpy()
+    secs = time.perf_counter() - t0
+    samples = f(np.arange(2 ** nq) / 2 ** nq)
+    ref = np.sqrt(2 ** nq) * np.fft.ifft(samples)
+    err = np.abs(vals - ref).max() / np.abs(ref).max()
+    log(f"  qft_mps of the {nq}-bit samples (bond {q.bond_dim}, complex128): {secs:.2f} s "
+        f"({smi}); max |QFT - sqrt(N) ifft| / max |.| = {err:.1e} (tol {cfg['qft_tol']})")
+    if not (rel <= cfg["rtol"] and err <= cfg["qft_tol"]):
+        raise AssertionError("TCI integral or QFT off")
+
+
+def quantics_dense_path(device, smi, cfg):
+    """The 20-bit quantics MPS cast to float32 on every grid point through
+    ``quantics_to_dense`` (#1 on the card), against the plain version and
+    the float64 samples.  Returns the kernel's inputs for timing."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import MPS, function_mps, quantics_to_dense
+    from contractn_tpu_torch.models.quantics import _one_hot_bits
+    from contractn_tpu_torch.ops.cuda_mps import mps_evaluate_plain
+
+    f = _damped_cosine(cfg["freq"])
+    n = cfg["n_bits"]
+    m = function_mps(f, n, device=device)
+    m32 = MPS(m.cores.float(), m.left.float(), m.right.float())
+    with torch.no_grad():
+        dense = quantics_to_dense(m32)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    launches = read_counters()["mps_evaluate"]
+    weights = _one_hot_bits(n, torch.float32, device)
+    ref = mps_evaluate_plain(m32.cores, m32.left, m32.right, weights)
+    cond = mps_condition(m32.cores, m32.left, m32.right, weights)
+    log(f"  quantics_to_dense of function_mps(f, {n}) as float32 ({2 ** n} rows x {n} "
+        f"sites x d 2, bond {m.bond_dim}): #1 launches {launches}")
+    compare_split((dense, torch.zeros_like(dense)), ref, TOL_F32,
+                  "quantics samples through #1 vs plain", cond)
+    samples = f(np.arange(2 ** n) / 2 ** n)
+    err = np.abs(dense.double().cpu().numpy() - samples).max() / np.abs(samples).max()
+    log(f"    max |float32 samples - float64 f(x_j)| / max |f| = {err:.1e} "
+        f"(tol {cfg['tol']})")
+    if err > cfg["tol"] or (device.type == "cuda" and launches != 1):
+        raise AssertionError("quantics_to_dense through #1 off")
+    return m32.cores, m32.left, m32.right, weights
+
+
+def time_quantics_kernel(smi, cores, left, right, weights):
+    """#1 at the quantics shape with CUDA events, beside its bound."""
+    from contractn_tpu_torch.ops import cuda_mps
+
+    batch, n, d = weights.shape
+    bond = cores.shape[-1]
+    ms = cuda_time(lambda: cuda_mps.cuda_mps_evaluate(cores, left, right, weights))
+    plain = cuda_time(lambda: cuda_mps.mps_evaluate_plain(cores, left, right, weights),
+                      reps=3)
+    bms, by = bound_ms(batch * n * 2 * d * bond * bond, batch * n * (2 * d * bond + 3 * bond),
+                       4 * (cores.numel() + weights.numel() + 2 * bond) + 8 * batch)
+    log(f"    #1 at the quantics shape ({batch} x {n} x d {d}, bond {bond}): kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.3f} ms ({by}) ({smi})")
+
+
+def lindblad_path(device, smi, cfg):
+    """W^II Lindblad evolution of the dephased XXZ chain: the trace stays 1
+    and every <Z_i> agrees between the card and the CPU."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (density_expectation, density_trace,
+                                            lindblad_evolve_wii, mpo_from_bond_term,
+                                            vectorized_product_state)
+
+    x = np.array([[0.0, 1.0], [1.0, 0.0]])
+    y = np.array([[0.0, -1j], [1j, 0.0]])
+    z = np.diag([1.0, -1.0])
+    h2 = (np.kron(x, x) + np.kron(y, y)).real + cfg["jz"] * np.kron(z, z)
+    n = cfg["n_sites"]
+    neel = [np.array([0.0, 1.0]) if i % 2 == 0 else np.array([1.0, 0.0]) for i in range(n)]
+
+    def run(dev):
+        h = mpo_from_bond_term(h2, n, dtype=torch.complex128, device=dev)
+        t0 = time.perf_counter()
+        rho = lindblad_evolve_wii(vectorized_product_state(neel, device=dev), h,
+                                  cfg["dt"] * cfg["steps"], cfg["steps"],
+                                  jumps=[math.sqrt(cfg["gamma"]) * z],
+                                  max_bond=cfg["max_bond"])
+        zs = np.array([density_expectation(rho, z, i).real for i in range(n)])
+        tr = density_trace(rho)
+        val, lg = rho.norm_squared()
+        # the trace's condition: ||vec(I)|| ||rho|| / |Tr rho|
+        cond = 2.0 ** (n / 2) * math.sqrt(float(val.real) * math.exp(float(lg))) / abs(tr)
+        return rho, tr, cond, zs, time.perf_counter() - t0
+
+    rho, tr, cond, zs, secs = run(device)
+    _, tr_cpu, cond_cpu, zs_cpu, secs_cpu = run(torch.device("cpu"))
+    err = np.abs(zs - zs_cpu).max()
+    log(f"  lindblad_evolve_wii dephased XXZ (jz {cfg['jz']}, gamma {cfg['gamma']}), {n} "
+        f"sites, {cfg['steps']} steps of dt {cfg['dt']}, max_bond {cfg['max_bond']} "
+        f"(bond {rho.bond_dim}): {secs:.2f} s on the card, {secs_cpu:.2f} s on the CPU "
+        f"({smi}); |Tr rho - 1| {abs(tr - 1):.1e} on the card, {abs(tr_cpu - 1):.1e} on "
+        f"the CPU (tol {cfg['trace_tol']} x cond {cond:.4g}); max |<Z_i> card - CPU| "
+        f"{err:.1e} (tol {cfg['tol']}), <Z_0> {zs[0]:.10f}")
+    if not (abs(tr - 1) <= cfg["trace_tol"] * cond and err <= cfg["tol"]
+            and abs(tr_cpu - 1) <= cfg["trace_tol"] * cond_cpu):
+        raise AssertionError("Lindblad W^II: trace or card against CPU off")
+
+
+def cv_path(device, smi, cfg):
+    """The batched correction-vector grid (one leading frequency axis, one
+    batched SVD a split) for S^z at the middle of a Heisenberg ground state,
+    card against CPU."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (MPS, cv_spectral_function_batched, dmrg,
+                                            heisenberg_mpo)
+    from contractn_tpu_torch.models import dynamical
+
+    n, bond = cfg["n_sites"], cfg["bond"]
+    h = heisenberg_mpo(n, device=device)
+    mps0 = MPS.random(n, 2, bond, dtype=torch.float64, generator=_gen(device, cfg["seed"]),
+                      device=device)
+    t0 = time.perf_counter()
+    ground, e0, _ = dmrg(h, mps0, max_bond=bond, sweeps=cfg["dmrg_sweeps"])
+    secs_dmrg = time.perf_counter() - t0
+    omegas = np.linspace(*cfg["omegas"], cfg["n_omegas"])
+    sz = np.diag([0.5, -0.5])
+    kw = dict(sweeps=cfg["sweeps"], cg_iters=cfg["cg_iters"])
+    batches = []
+    real_split = dynamical._split_theta
+
+    def spy(theta, max_bond, to_left):
+        batches.append(theta.shape[0])
+        return real_split(theta, max_bond, to_left)
+
+    dynamical._split_theta = spy
+    try:
+        t0 = time.perf_counter()
+        card = cv_spectral_function_batched(h, ground, e0, sz, n // 2, omegas, cfg["eta"], **kw)
+        secs = time.perf_counter() - t0
+    finally:
+        dynamical._split_theta = real_split
+    cpu = torch.device("cpu")
+    sub = slice(None, None, cfg["cpu_every"])
+    h_cpu = heisenberg_mpo(n, device=cpu)
+    ground_cpu = MPS(ground.cores.to(cpu), ground.left.to(cpu), ground.right.to(cpu))
+    t0 = time.perf_counter()
+    host = cv_spectral_function_batched(h_cpu, ground_cpu, e0, sz, n // 2, omegas[sub],
+                                        cfg["eta"], **kw)
+    secs_cpu = time.perf_counter() - t0
+    # how far float64 determines this computation: a 1e-15 relative nudge
+    noise = torch.randn(ground_cpu.cores.shape, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(cfg["seed"]))
+    nudged = MPS(ground_cpu.cores * (1 + 1e-15 * noise), ground_cpu.left, ground_cpu.right)
+    host_nudged = cv_spectral_function_batched(h_cpu, nudged, e0, sz, n // 2, omegas[sub],
+                                               cfg["eta"], **kw)
+    scale = np.abs(host).max()
+    spread = np.abs(host_nudged - host).max() / scale
+    err = np.abs(card[sub] - host).max() / scale
+    tol = max(cfg["tol"], 10 * spread)
+    one_batch = batches == [len(omegas)] * (2 * (n - 1) * cfg["sweeps"])
+    log(f"  cv_spectral_function_batched: {len(omegas)} frequencies, S^z at site {n // 2} "
+        f"of the {n}-site Heisenberg ground state (dmrg bond {bond}, {secs_dmrg:.2f} s, "
+        f"E0 {e0:.10f}), eta {cfg['eta']}, {cfg['sweeps']} ALS sweeps, CG {cfg['cg_iters']}: "
+        f"{secs:.2f} s on the card, {secs_cpu:.2f} s on the CPU for {len(host)} of the "
+        f"frequencies ({smi}); {len(batches)} splits, each one batched SVD over all "
+        f"frequencies: {one_batch}; max |S card - S CPU| / max |S| = {err:.1e}; the CPU's "
+        f"own spread under a 1e-15 nudge {spread:.1e} (tol max({cfg['tol']}, 10 x spread) "
+        f"= {tol:.1e})")
+    if not (one_batch and err <= tol):
+        raise AssertionError("batched correction vectors: card against CPU off")
+
+
+def mcwf_path(device, smi, cfg):
+    """An MCWF trajectory ensemble of the damped TFIM, card against CPU on
+    the same host draws."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import MPS, mcwf_ensemble, tfim_bond_term
+
+    n = cfg["n_sites"]
+    h2 = tfim_bond_term(1.0, cfg["h"])
+    lower = np.array([[0.0, 1.0], [0.0, 0.0]])
+    jumps = [(math.sqrt(cfg["gamma"]) * lower, j) for j in range(n)]
+    z = np.diag([1.0, -1.0])
+
+    def run(dev, nudge=0.0):
+        cores = torch.zeros((n, 2, 1, 1), dtype=torch.float64)
+        cores[:, 1] = 1.0  # all down: the damping has work to do
+        cores += nudge * torch.randn(cores.shape, dtype=torch.float64,
+                                     generator=torch.Generator().manual_seed(cfg["seed"]))
+        one = torch.ones((1,), dtype=torch.float64, device=dev)
+        t0 = time.perf_counter()
+        mean, jumps_total = mcwf_ensemble(
+            MPS(cores.to(dev), one, one.clone()), h2, jumps, cfg["t"], cfg["steps"], z,
+            cfg["n_traj"], max_bond=cfg["max_bond"],
+            generator=torch.Generator().manual_seed(cfg["seed"]),
+            measure_every=cfg["steps"])
+        return mean, jumps_total, time.perf_counter() - t0
+
+    mean, n_jumps, secs = run(device)
+    mean_cpu, n_jumps_cpu, secs_cpu = run(torch.device("cpu"))
+    mean_nudged, _, _ = run(torch.device("cpu"), nudge=1e-15)
+    err = np.abs(mean - mean_cpu).max()
+    spread = np.abs(mean_nudged - mean_cpu).max()
+    tol = max(cfg["tol"], 10 * spread)
+    log(f"  mcwf_ensemble damped TFIM (h {cfg['h']}, gamma {cfg['gamma']}), {n} sites, "
+        f"{cfg['n_traj']} trajectories x {cfg['steps']} steps, max_bond {cfg['max_bond']}: "
+        f"{secs:.2f} s on the card, {secs_cpu:.2f} s on the CPU ({smi}); jumps "
+        f"{n_jumps} / {n_jumps_cpu}; mean <Z> at t {cfg['t']} {mean[-1].mean():.6f}; max "
+        f"|card - CPU| {err:.1e}; the CPU's own spread under a 1e-15 nudge {spread:.1e} "
+        f"(tol max({cfg['tol']}, 10 x spread) = {tol:.1e})")
+    if not (n_jumps == n_jumps_cpu and err <= tol):
+        raise AssertionError("MCWF ensemble: card against CPU off")
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -1575,6 +2103,14 @@ PATH_OF = {"mps_evaluate": "mps_evaluate",
            "mpo_env": "mpo_expectation"}
 
 
+def physics_phase(device, smi):
+    log("== 9. physics chains")
+    t9 = time.perf_counter()
+    for path, (counts, secs) in physics_chains(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
+
 def main():
     if not (ROOT / "contractn_tpu_torch" / "__init__.py").is_file():
         fail(f"no contractn_tpu_torch package beside {Path(__file__).name}; "
@@ -1587,6 +2123,10 @@ def main():
     log("== 2. build")
     phase_build()
     kernel_smem(device)
+    if sys.argv[1:] == ["--physics-only"]:  # phases 1, 2 and 9 alone; no result lines
+        physics_phase(device, smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return
     log("== 3. kernels against their plain versions")
     errors = phase_kernels_vs_plain(device)
     log("== 4. main path")
@@ -1619,6 +2159,7 @@ def main():
     log("== 8. finite chains")
     for path, (counts, secs) in finite_chains(device, smi).items():
         log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    physics_phase(device, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

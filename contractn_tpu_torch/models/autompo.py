@@ -2,8 +2,8 @@
 
 Counterpart of ``contractn_tpu/models/autompo.py``; the compilers run on the
 host (numpy) and the MPO goes to ``device`` (default ``cuda``; raises without
-a GPU unless ``device="cpu"``).  Departure until the U(1) layer is ported:
-``phys_charges=`` (charge-blocked compression) raises :class:`TNError`.
+a GPU unless ``device="cpu"``).  ``phys_charges=`` compresses charge-blocked
+through :func:`~.u1.compress_mpo_u1`.
 
 The missing convenience layer over the per-case builders
 (:func:`~contractn_tpu.models.mpo.mpo_from_bond_term`, the spin2d snake
@@ -51,7 +51,6 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device, torch_dtype
-from ..utils.errors import TNError
 from .canonical import compress_mpo
 from .mpo import MPO
 
@@ -240,13 +239,12 @@ def op_sum_mpo(opsum, n_sites, d=2, ops=None, cutoff=1e-12, dtype=None,
         dtype: result dtype (default: inferred, f64/c128).
         phys_charges: optional per-state U(1) charges (flat, or one
             sequence per site).  When given, compression is CHARGE-
-            BLOCKED (:func:`~contractn_tpu.models.u1.compress_mpo_u1`)
-            so the result stays channel-charge-definite for the masked
-            solvers — a plain SVD mixes charge channels and the
-            operator then fails :func:`~contractn_tpu.models.u1.
-            mpo_channel_charges`.  The finite-state machine itself is
-            definite by construction (one channel per crossing term).
-            Not available in this package yet: raises :class:`TNError`.
+            BLOCKED (:func:`~.u1.compress_mpo_u1`) so the result stays
+            channel-charge-definite for the masked solvers — a plain SVD
+            mixes charge channels and the operator then fails
+            :func:`~.u1.mpo_channel_charges`.  The finite-state machine
+            itself is definite by construction (one channel per crossing
+            term).
         device: where the MPO goes (default ``cuda``).
 
     Returns:
@@ -255,11 +253,6 @@ def op_sum_mpo(opsum, n_sites, d=2, ops=None, cutoff=1e-12, dtype=None,
     """
     if not opsum.terms:
         raise ValueError("empty OpSum")
-    if phys_charges is not None:
-        raise TNError(
-            "phys_charges= (charge-blocked compression) needs the U(1) layer, "
-            "which this package does not have yet"
-        )
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
 
@@ -351,6 +344,13 @@ def op_sum_mpo(opsum, n_sites, d=2, ops=None, cutoff=1e-12, dtype=None,
 
     # compress at the stacked (f64/c128) precision, cast after
     naive = MPO(*(torch.from_numpy(a).to(device) for a in (stacked, left, right)))
+    if phys_charges is not None:
+        from .u1 import compress_mpo_u1
+
+        comp, _ = compress_mpo_u1(naive, phys_charges, cutoff=cutoff)
+        if dtype is not None:
+            return MPO(comp.cores.to(dtype), comp.left.to(dtype), comp.right.to(dtype))
+        return comp
     comp, log_norm, _ = compress_mpo(naive, cutoff=cutoff)
     # compress_mpo Frobenius-normalizes; restore the operator scale spread
     # across sites (one boundary factor overflows at ~2000 sites)

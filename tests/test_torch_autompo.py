@@ -14,7 +14,6 @@ import pytest
 import torch
 
 from contractn_tpu_torch.convert import mpo_to_numpy
-from contractn_tpu_torch.utils.errors import TNError
 
 ja = import_module("contractn_tpu.models.autompo")
 ta = import_module("contractn_tpu_torch.models.autompo")
@@ -217,6 +216,6 @@ def test_validation():
     with pytest.raises(ValueError):
         ta.op_sum_mpo(h, 4, device="cpu")
     h = ta.OpSum()
-    h += (1.0, "Z", 0, "Z", 1)
-    with pytest.raises(TNError, match="U\\(1\\)"):
-        ta.op_sum_mpo(h, 4, phys_charges=[0, 1], device="cpu")
+    h += (1.0, "X", 0)  # X changes the U(1) charge: no definite channels
+    with pytest.raises(ValueError, match="charge-definite"):
+        ta.op_sum_mpo(h, 4, phys_charges=[1, -1], device="cpu")

@@ -157,6 +157,15 @@ def test_finite_chains_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_physics_chains_on_gpu(cuda_device):
+    # phase 9 at its rehearsal size: every check, and #1 launched exactly
+    # once on each of the two serving paths and on no other
+    runs = chip_smoke.physics_chains(cuda_device, "test", chip_smoke.PHYSICS_TINY)
+    assert runs["serve_hubbard"][0]["mps_evaluate"] == 1
+    assert runs["quantics_dense"][0]["mps_evaluate"] == 1
+
+
+@pytest.mark.cuda
 def test_contract_gradient_lands_on_the_operand_device(cuda_device):
     import contractn_tpu_torch as ttn
 

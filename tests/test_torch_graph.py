@@ -163,9 +163,37 @@ def test_scans_cover_every_ported_module():
                    "models/dmrg.py", "models/autompo.py", "models/ensemble.py",
                    "models/tdvp.py", "models/dmrgx.py", "models/dmrg3s.py",
                    "models/itebd.py", "models/circuits.py", "models/linsolve.py",
-                   "models/chebyshev.py"):
+                   "models/chebyshev.py", *(f"models/{m}.py" for m in SLICE7)):
         assert module in scanned, module
     assert all(p.is_file() for p in _port_files())
+
+
+# the modules of Queue A §8.4-§8.7, at the JAX package's relative paths
+SLICE7 = ("fermions", "fermions2d", "spin2d", "u1", "hubbard", "quantics", "tci",
+          "circuit_compile", "metts", "trajectories", "mpo_evolution", "lindblad",
+          "dynamical", "operator_dynamics", "noisy")
+
+
+def test_models_export_the_jax_names_of_each_ported_module():
+    """From each of these modules, ``models/__init__`` exports exactly the
+    names the JAX package's ``models/__init__`` exports from it."""
+    def exported(pkg_dir):
+        tree = ast.parse((pkg_dir / "models" / "__init__.py").read_text())
+        out = {}
+        for node in tree.body:
+            if isinstance(node, ast.ImportFrom) and node.module in SLICE7:
+                out.setdefault(node.module, set()).update(
+                    a.asname or a.name for a in node.names)
+        return out
+
+    want = exported(PORT.parent / "contractn_tpu")
+    got = exported(PORT)
+    assert set(want) == set(SLICE7) and got == want
+    import contractn_tpu_torch.models as models
+
+    for names in got.values():
+        assert names <= set(models.__all__)
+        assert all(hasattr(models, n) for n in names)
 
 
 def test_port_imports_no_jax_and_never_enables_tf32():
