@@ -75,13 +75,26 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    (one launch; against the plain version and the float64 samples; #1's
    time at that shape beside its bound); W^II Lindblad evolution of the
    dephased 20-site XXZ chain, the batched correction-vector grid (32
-   frequencies) on a 32-site Heisenberg ground state and a 64-trajectory
-   MCWF ensemble, each card against CPU; no other path launches a kernel.
+   frequencies) on a 32-site Heisenberg ground state and a 32-trajectory
+   MCWF ensemble, each card against CPU; no other path launches a kernel;
+10. infinite chains and chemistry (``INFINITE``): VUMPS of the spin-1
+   Heisenberg chain (``InfiniteOpSum``, bond grown to 128) against White &
+   Huse's energy, the Haldane gap at k = pi by ``excitation_minimum_cell``
+   against Haegeman et al., the dense ``excitation_spectrum`` at bond 12
+   card against CPU; ``hubbard_vumps`` at half filling with bonds grown to
+   128 (the largest halved while over budget) against Lieb-Wu, no entry
+   outside the masks; the H8 chain in STO-3G by ``chemistry_dmrg_u1`` at
+   bond 128 (monotone, below RHF, N exact) and by ``chemistry_dmrg`` at
+   bond 128 against its exact bond-256 run, its ground state served as
+   float32 through #1 (one launch, held against the plain version);
+   frozen-core water (RHF against the published value, DMRG against FCI);
+   ``umps_mpo_evolve`` of the infinite TFIM, card against CPU.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
-last ``{"ok": true, "device": {...}}``.  ``--physics-only`` runs phases 1, 2
-and 9 alone and prints neither.  Without a GPU, or without the
-package beside this file, it exits nonzero and prints no result.
+last ``{"ok": true, "device": {...}}``.  ``--physics-only``
+(``--infinite-only``) runs phases 1, 2 and 9 (10) alone and prints
+neither.  Without a GPU, or without the package beside this file, it exits
+nonzero and prints no result.
 """
 
 import json
@@ -162,7 +175,9 @@ GRAPH = {
 # energy the example prints as about -138.94.  TFIM: the critical open chain,
 # held against the free-fermion energy.  ENSEMBLE: 64 TFIM chains over a
 # field scan in one batched search.  QUENCH: single-site TDVP from the TFIM
-# ground state (h 1 -> 0.5) in complex128.  ITEBD: the infinite critical
+# ground state (h 1 -> 0.5) in complex128, 6 steps: at 10 (64.2 s), with
+# LINDBLAD at 10 too, the whole script took 767.1 s on an H100, over its
+# 750 s budget (PERF.md §6).  ITEBD: the infinite critical
 # chain against -4/pi to the JAX test's 5e-4.  OPSUM: an OpSum-built
 # Heisenberg MPO against heisenberg_mpo through rayleigh.
 CHAINS = {
@@ -172,7 +187,7 @@ CHAINS = {
              "seed": 4},
     "ensemble": {"n_members": 64, "h": (0.5, 1.5), "n_sites": 32, "bond": 32,
                  "sweeps": 4, "rtol": 1e-7, "seed": 5},
-    "quench": {"h": 0.5, "dt": 0.05, "steps": 10, "drift_tol": 1e-7,
+    "quench": {"h": 0.5, "dt": 0.05, "steps": 6, "drift_tol": 1e-7,
                "norm_tol": 1e-10},
     "itebd": {"bond": 32, "tol": 5e-4},
     "opsum": {"n_sites": 100, "bond": 16, "rtol": 1e-10, "seed": 6},
@@ -188,7 +203,8 @@ CHAINS = {
 # closed form of its Riemann sum, and the QFT of its 16-bit samples against
 # numpy.fft.  DENSE: the 20-bit quantics MPS evaluated on every grid point
 # through #1.  LINDBLAD: the dephased XXZ chain by W^II, card against CPU,
-# 10 steps (not 20: the CPU run of 10 already takes about 50 s).  The trace
+# 6 steps (not 20; at 10 the card and CPU runs took 79.7 s, and the script
+# went over its budget, see QUENCH above).  The trace
 # is an overlap with vec(I), whose norm is 2^(n/2): a 2-norm rounding of
 # rho of relative size e moves it by up to e 2^(n/2) ||rho|| (about 2e-11 a
 # step at 20 sites on the card, growing with the bond, while the discarded
@@ -219,7 +235,7 @@ PHYSICS = {
     "tci": {"n_bits": 40, "freq": 50.0, "max_bond": 16, "tol": 1e-10, "rtol": 1e-9,
             "qft_bits": 16, "qft_tol": 1e-10},
     "dense": {"n_bits": 20, "freq": 50.0, "tol": 1e-5},
-    "lindblad": {"n_sites": 20, "steps": 10, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
+    "lindblad": {"n_sites": 20, "steps": 6, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
                  "max_bond": 64, "trace_tol": 1e-10, "tol": 1e-10},
     "cv": {"n_sites": 32, "bond": 32, "dmrg_sweeps": 4, "n_omegas": 32,
            "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 2, "cg_iters": 64,
@@ -245,6 +261,68 @@ PHYSICS_TINY = {
            "cpu_every": 2, "tol": 1e-8, "seed": 22},
     "mcwf": {"n_sites": 4, "n_traj": 3, "steps": 3, "t": 0.3, "h": 1.0,
              "gamma": 0.2, "max_bond": 4, "tol": 1e-10, "seed": 23},
+}
+# Infinite chains and chemistry (phase 10).  HALDANE: the spin-1 Heisenberg
+# chain of MPSKit.jl's documented "Haldane gap" example, its MPO built by
+# InfiniteOpSum: VUMPS with the bond grown 32 -> 64 -> 128 (each stage from
+# the last one's AL, zero-padded, plus noise), the bond-128 energy per site
+# against White & Huse's -1.401484038971 (PRB 48, 3844, 1993); the gap at
+# k = pi by excitation_minimum_cell on the largest grown ground whose solve
+# fits its budget (not under bond 32), against Haegeman et al.'s 0.41047925
+# (PRB 85, 100408, 2012); the dense excitation_spectrum on a bond-12 ground,
+# card against CPU over all bands.  HUBBARD: hubbard_vumps (u 4, t 1, half
+# filling, the d = 16 folded cell) with bonds grown to 128, the largest
+# halved while its timed estimate exceeds the budget, against Lieb-Wu
+# (-0.573729 at u 4).  H_CHAIN: the linear hydrogen chain in STO-3G at 1.8
+# bohr, near the equilibrium of the Simons Collaboration hydrogen-chain
+# benchmark (Motta et al., PRX 7, 031059, 2017); H8, not H10: the
+# charge-blocked MPO compile (host AutoMPO and block SVDs) of H10's 18,300
+# terms takes 113.7 s on the card machine's host, over the 60 s allowed
+# (scripts/time_chemistry_mpo.py; PERF.md §6).  RHF, then chemistry_dmrg_u1
+# at bond 128 (energies non-increasing, below RHF, N exact, no leaks), held
+# within 1e-4 Ha to the JAX package's electronic masked-route energy at the
+# same size (u1_ref, from scripts/chemistry_u1_reference.py 8 128 4: the
+# route stops at a level that depends on its start only slightly); and the
+# penalty route chemistry_dmrg on the same operator at bond 128 against its
+# own run at bond 256, which holds every Schmidt rank of 16 spin-orbitals
+# (exact).  The two routes are not held to each other: the masked route
+# splits its slots among the charge classes by u1_bond_charges, as the JAX
+# package does, and at bond 128 stays 2.0e-2 Ha above the exact energy (its
+# distance is printed).  The ground state is served
+# through #1.  WATER: frozen-core STO-3G water at the experimental geometry,
+# RHF against the published -74.9630 and DMRG at bond 24 against FCI.
+# EVOLVE: imaginary-time umps_mpo_evolve of the infinite TFIM at h 1.5 from a
+# product state, bond 16, card against CPU.
+INFINITE = {
+    "haldane": {"schedule": (32, 64, 128), "iters": 60, "lanczos_iters": 40,
+                "noise": 1e-3, "e_ref": -1.401484038971, "e_tol": 1e-8,
+                "gap_ref": 0.41047925, "gap_tol": 1e-4, "gap_min_bond": 32,
+                "gap_iters": 60, "gap_budget_s": 40.0, "dense_bond": 12,
+                "dense_tol": 1e-10, "seed": 21},
+    "hubbard": {"u": 4.0, "t": 1.0, "bond_dims": (16, 32, 64, 128), "iters": 40,
+                "lanczos_iters": 40, "budget_s": 40.0, "min_bond": 32, "tol": 1e-4,
+                "seed": 22},
+    "h_chain": {"n_atoms": 8, "r": 1.8, "bond": 128, "full_bond": 256, "sweeps": 4,
+                "pen_tol": 1e-4, "u1_ref": -11.93065637789795, "u1_tol": 1e-4,
+                "serve_batch": 4096, "seed": 23},
+    "water": {"angle": 104.52, "r_oh": 0.9572 / 0.52917721067, "bond": 24,
+              "sweeps": 4, "rhf_ref": -74.9630, "rhf_tol": 2e-3, "fci_tol": 1e-7},
+    "evolve": {"h": 1.5, "bond": 16, "t": 0.5, "steps": 5, "tol": 1e-10},
+}
+# The same paths at a size the CPU rehearses in seconds
+# (tests/test_torch_vumps.py).  H4's penalty route runs at bond 8, below the
+# 16 that holds every Schmidt rank, where it lies 1.5e-4 above the exact
+# energy: its tolerance there is 1e-3.
+INFINITE_TINY = {
+    "haldane": {**INFINITE["haldane"], "schedule": (6, 8), "iters": 30, "e_tol": 1e-2,
+                "gap_tol": 2e-2, "gap_min_bond": 6, "gap_iters": 20, "dense_bond": 3,
+                "gap_budget_s": 5.0},
+    "hubbard": {**INFINITE["hubbard"], "bond_dims": (8,), "iters": 3, "min_bond": 8,
+                "tol": 1.0, "budget_s": 30.0},
+    "h_chain": {**INFINITE["h_chain"], "n_atoms": 4, "bond": 8, "full_bond": 16,
+                "pen_tol": 1e-3, "u1_ref": -4.57759881903517, "serve_batch": 64},
+    "water": INFINITE["water"],
+    "evolve": {**INFINITE["evolve"], "bond": 4, "steps": 2},
 }
 TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
 TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
@@ -1650,7 +1728,8 @@ def physics_chains(device, smi, sizes=PHYSICS):
         return out
 
     ground = drive("hubbard_sector", lambda: hubbard_path(device, smi, sizes["hubbard"]))
-    drive("serve_hubbard", lambda: serve_hubbard(device, smi, sizes["hubbard"], ground))
+    drive("serve_hubbard", lambda: serve_ground(device, ground,
+                                                sizes["hubbard"]["serve_batch"], "Hubbard"))
     drive("quantics_tci", lambda: quantics_tci_path(device, smi, sizes["tci"]))
     dense = drive("quantics_dense", lambda: quantics_dense_path(device, smi, sizes["dense"]))
     if device.type == "cuda":
@@ -1753,32 +1832,6 @@ def hubbard_path(device, smi, cfg):
     if gap > an["tol"]:
         raise AssertionError("Hubbard anchor disagrees with sector ED")
     return mps
-
-
-def serve_hubbard(device, smi, cfg, ground):
-    """The Hubbard ground state as float32 on configurations drawn by
-    ``sample_canonical``, through ``MPS.evaluate`` under ``torch.no_grad()``
-    (#1 on the card), held against the plain version."""
-    from contractn_tpu_torch.models import MPS, right_canonicalize, sample_canonical
-    from contractn_tpu_torch.ops.cuda_mps import mps_evaluate_plain
-
-    rc, _ = right_canonicalize(ground)
-    samples, _ = sample_canonical(rc, cfg["serve_batch"], generator=_gen(device, 13))
-    x = torch.nn.functional.one_hot(samples, ground.phys_dim).to(torch.float32)
-    served = MPS(ground.cores.float(), ground.left.float(), ground.right.float())
-    with torch.no_grad():
-        got = served.evaluate(x)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    sync()
-    launches = read_counters()["mps_evaluate"]
-    ref = mps_evaluate_plain(served.cores, served.left, served.right, x)
-    cond = mps_condition(served.cores, served.left, served.right, x)
-    log(f"  served the Hubbard ground state ({ground.n_sites} sites, d 2, bond "
-        f"{ground.bond_dim}, as float32) on {x.shape[0]} configurations from "
-        f"sample_canonical: #1 launches {launches}")
-    compare_split(got, ref, TOL_F32, "Hubbard ground state through #1 vs plain", cond)
-    if device.type == "cuda" and launches != 1:
-        raise AssertionError(f"serving the Hubbard state launched #1 {launches} times")
 
 
 def _damped_cosine(freq):
@@ -2028,6 +2081,413 @@ def mcwf_path(device, smi, cfg):
         raise AssertionError("MCWF ensemble: card against CPU off")
 
 
+def infinite_chains(device, smi, sizes=INFINITE):
+    """Phase 10: the infinite-chain layer (VUMPS, quasiparticle excitations,
+    charge-masked VUMPS, uniform W^II evolution) and quantum-chemistry DMRG
+    through the user entry points; returns ``{path: (counts, seconds)}``.
+    Each path runs with every launch count zeroed just before it and read
+    just after; only serving the hydrogen-chain ground state may launch a
+    hand kernel (#1, exactly once)."""
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+        return out
+
+    mpo, grounds = drive("haldane_vumps", lambda: haldane_vumps(device, smi,
+                                                                sizes["haldane"]))
+    drive("haldane_gap", lambda: haldane_gap(device, smi, sizes["haldane"], mpo, grounds))
+    drive("haldane_dense", lambda: haldane_dense(device, smi, sizes["haldane"], mpo))
+    drive("hubbard_vumps", lambda: hubbard_infinite(device, smi, sizes["hubbard"]))
+    ground = drive("h_chain_dmrg", lambda: h_chain_path(device, smi, sizes["h_chain"]))
+    drive("serve_h_chain", lambda: serve_ground(device, ground, sizes["h_chain"]["serve_batch"],
+                                                "hydrogen-chain"))
+    drive("water_anchor", lambda: water_anchor(device, smi, sizes["water"]))
+    drive("umps_evolve", lambda: umps_evolve_path(device, smi, sizes["evolve"]))
+    for path, (counts, _) in runs.items():
+        want = ({"mps_evaluate": 1} if (path == "serve_h_chain" and device.type == "cuda")
+                else {})
+        got = {k: v for k, v in counts.items() if v and "." not in k}
+        if got != want:
+            raise AssertionError(f"path {path}: hand-kernel launches {counts}, want {want}")
+    return runs
+
+
+def haldane_mpo(device):
+    """The spin-1 Heisenberg bulk core built through ``InfiniteOpSum``, as a
+    one-core MPO (the form ``vumps`` reads)."""
+    from contractn_tpu_torch.models import MPO, InfiniteOpSum, spin_ops
+
+    h = InfiniteOpSum()
+    h.add(1.0, "Sz", 0, "Sz", 1)
+    h.add(0.5, "S+", 0, "S-", 1)
+    h.add(0.5, "S-", 0, "S+", 1)
+    w = h.to_umpo(d=3, ops=spin_ops(1), dtype=torch.float64, device=device)
+    ends = torch.eye(w.shape[2], dtype=torch.float64, device=device)
+    return MPO(w[None], ends[0], ends[-1])
+
+
+def _grown_start(prev, bond, gen, noise):
+    """A bond-``bond`` start core: the previous stage's left-isometric core,
+    zero-padded, plus standard-normal ``noise`` from ``gen``."""
+    al = prev["al"]
+    a0 = torch.zeros((al.shape[0], bond, bond), dtype=al.dtype, device=al.device)
+    a0[:, :al.shape[1], :al.shape[2]] = al
+    return a0 + noise * torch.randn(a0.shape, dtype=al.dtype, device=al.device,
+                                    generator=gen)
+
+
+def haldane_vumps(device, smi, cfg):
+    """VUMPS of the spin-1 Heisenberg chain, the bond grown through
+    ``cfg["schedule"]`` (each stage started from the last one's AL), the
+    final energy per site against White & Huse's value."""
+    from contractn_tpu_torch.models import vumps
+
+    mpo = haldane_mpo(device)
+    gen = _gen(device, cfg["seed"])
+    grounds, prev = {}, None
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    for bond in cfg["schedule"]:
+        a0 = None if prev is None else _grown_start(prev, bond, gen, cfg["noise"])
+        t0 = time.perf_counter()
+        prev = vumps(mpo, bond, iters=cfg["iters"], lanczos_iters=cfg["lanczos_iters"],
+                     generator=gen, a0=a0, device=device)
+        sync()
+        secs = time.perf_counter() - t0
+        grounds[bond] = (prev, secs)
+        log(f"  vumps spin-1 Heisenberg (InfiniteOpSum, W {mpo.cores.shape[3]}), bond "
+            f"{bond}, float64: {len(prev['energies'])} iterations in {secs:.2f} s "
+            f"({smi}); energy per site {prev['energy']:.13f} (White & Huse "
+            f"{cfg['e_ref']}: {prev['energy'] - cfg['e_ref']:+.2e}); gradient norm "
+            f"{prev['gradient_norm']:.2e}")
+    err = abs(prev["energy"] - cfg["e_ref"])
+    if not err <= cfg["e_tol"]:
+        raise AssertionError(f"Haldane chain: energy {prev['energy']} is {err:.2e} from "
+                             f"{cfg['e_ref']} (tol {cfg['e_tol']})")
+    return mpo, grounds
+
+
+def _as_cell(ground):
+    """A one-site VUMPS ground as the cell form the cell excitations read."""
+    return {"als": (ground["al"],), "ars": (ground["ar"],), "cs": (ground["c"],),
+            "acs": (ground["ac"],), "energy": ground["energy"]}
+
+
+def haldane_gap(device, smi, cfg, mpo, grounds):
+    """The Haldane gap at k = pi by ``excitation_minimum_cell`` on the
+    largest grown ground whose solve fits the budget: timed at the smallest
+    allowed bond, then run at the largest stage whose estimate (twice that
+    time) fits what is left."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import excitation_minimum_cell
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    bonds = [b for b in sorted(grounds) if b >= cfg["gap_min_bond"]]
+
+    def solve(bond):
+        t0 = time.perf_counter()
+        gap, _ = excitation_minimum_cell(_as_cell(grounds[bond][0]), [mpo.cores[0]], np.pi,
+                                         iters=cfg["gap_iters"],
+                                         generator=_gen(device, cfg["seed"] + 1))
+        sync()
+        secs = time.perf_counter() - t0
+        log(f"  excitation_minimum_cell at k = pi on the bond-{bond} ground: gap "
+            f"{gap:.10f} in {secs:.2f} s ({smi}); Haegeman et al. {cfg['gap_ref']}: "
+            f"distance {abs(gap - cfg['gap_ref']):.2e}")
+        return gap, secs
+
+    bond = bonds[0]
+    gap, secs = solve(bond)
+    left = cfg["gap_budget_s"] - secs
+    fits = [b for b in bonds[1:] if 2.0 * secs <= left]
+    if fits:
+        bond = fits[-1]
+        gap, _ = solve(bond)
+    dist = abs(gap - cfg["gap_ref"])
+    log(f"    Haldane gap at bond {bond}: {gap:.10f}, distance {dist:.2e} "
+        f"(tol {cfg['gap_tol']})")
+    if not dist <= cfg["gap_tol"]:
+        raise AssertionError(f"Haldane gap {gap} is {dist:.2e} from {cfg['gap_ref']}")
+
+
+def _ground_to(ground, device):
+    return {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+            for k, v in ground.items()}
+
+
+def haldane_dense(device, smi, cfg, mpo):
+    """The dense ``excitation_spectrum`` (every band at k = pi) on a bond-12
+    Haldane ground, card against CPU on the same ground tensors (the
+    tangent basis and the GMRES environment solves run on each)."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import MPO, vumps
+    from contractn_tpu_torch.models.excitations import excitation_spectrum
+
+    bond = cfg["dense_bond"]
+    ground = vumps(mpo, bond, iters=cfg["iters"], lanczos_iters=cfg["lanczos_iters"],
+                   generator=_gen(device, cfg["seed"] + 2), device=device)
+    cpu = torch.device("cpu")
+    mpo_cpu = MPO(mpo.cores.cpu(), mpo.left.cpu(), mpo.right.cpu())
+    out, secs = {}, {}
+    for dev, g, m in ((device, ground, mpo), (cpu, _ground_to(ground, cpu), mpo_cpu)):
+        t0 = time.perf_counter()
+        out[dev.type] = excitation_spectrum(g, m, np.pi).cpu().numpy()
+        secs[dev.type] = time.perf_counter() - t0
+    diff = float(np.abs(out[device.type] - out["cpu"]).max())
+    log(f"  excitation_spectrum at k = pi on a bond-{bond} Haldane ground: "
+        f"{out['cpu'].size} bands (one batched GMRES a channel), card "
+        f"{secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); lowest "
+        f"{out['cpu'][0]:.10f}; max |card - CPU| over all bands {diff:.2e} "
+        f"(tol {cfg['dense_tol']})")
+    if not diff <= cfg["dense_tol"]:
+        raise AssertionError("dense excitation spectrum: card and CPU disagree")
+
+
+def hubbard_schedule(device, cfg):
+    """The bond schedule of ``hubbard_vumps``: ``cfg["bond_dims"]``, the
+    largest halved while its timed estimate (two VUMPS iterations of the
+    folded cell at that bond, times ``cfg["iters"]``) exceeds the budget."""
+    from contractn_tpu_torch.models import (MPO, block_mpo, hubbard_chain_cell,
+                                            hubbard_relative_charges, vumps_u1)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    cell4 = hubbard_chain_cell(t=cfg["t"], u=cfg["u"], device=device)
+    cell16 = block_mpo(MPO(cell4.cores[0].expand((2,) + tuple(cell4.cores.shape[1:])),
+                           cell4.left, cell4.right), 2)
+    dims = list(cfg["bond_dims"])
+    while True:
+        bond = dims[-1]
+        vumps_u1(cell16, bond, hubbard_relative_charges(), iters=1,
+                 lanczos_iters=cfg["lanczos_iters"], generator=_gen(device, 3))
+        sync()
+        t0 = time.perf_counter()
+        vumps_u1(cell16, bond, hubbard_relative_charges(), iters=2,
+                 lanczos_iters=cfg["lanczos_iters"], generator=_gen(device, 3))
+        sync()
+        est = (time.perf_counter() - t0) / 2 * cfg["iters"]
+        log(f"  hubbard_vumps at bond {bond}: ~{est:.1f} s for {cfg['iters']} "
+            f"iterations (budget {cfg['budget_s']:.0f} s)")
+        if est <= cfg["budget_s"] or len(dims) == 1 or bond // 2 < cfg["min_bond"]:
+            return dims
+        log(f"    over budget: bond {bond} -> {bond // 2}")
+        dims = [b for b in dims if b < bond] or [bond // 2]
+
+
+def hubbard_infinite(device, smi, cfg):
+    """``hubbard_vumps`` at half filling (d = 16 folded cell, charge-masked),
+    the bond grown to the largest the budget allows, against Lieb-Wu; no
+    entry outside the charge masks."""
+    from contractn_tpu_torch.models import hubbard_vumps, lieb_wu_energy
+
+    dims = hubbard_schedule(device, cfg)
+    t0 = time.perf_counter()
+    res = hubbard_vumps(cfg["u"], t=cfg["t"], bond_dims=tuple(dims), iters=cfg["iters"],
+                        lanczos_iters=cfg["lanczos_iters"],
+                        generator=_gen(device, cfg["seed"]), device=device)
+    secs = time.perf_counter() - t0
+    exact = lieb_wu_energy(cfg["u"], cfg["t"])
+    mask = res["sector"]["site_mask"]
+    leak = sum(int(torch.count_nonzero(res[k] * (1 - mask))) for k in ("al", "ar", "ac"))
+    leak += int(torch.count_nonzero(res["c"] * (1 - res["sector"]["bond_mask"])))
+    err = abs(res["energy_per_site"] - exact)
+    log(f"  hubbard_vumps U {cfg['u']}, t {cfg['t']}, half filling, bonds "
+        f"{' -> '.join(map(str, dims))} (reached {dims[-1]}), float64: {secs:.2f} s "
+        f"({smi}); energy per site {res['energy_per_site']:.10f} vs Lieb-Wu "
+        f"{exact:.10f}: {err:.2e} (tol {cfg['tol']}); gradient norm "
+        f"{res['gradient_norm']:.2e}; entries outside the masks {leak}")
+    if not (err <= cfg["tol"] and leak == 0):
+        raise AssertionError("infinite Hubbard chain: energy or masks off")
+
+
+def h_chain_integrals(cfg):
+    """MO-basis integrals, the RHF total energy and the nuclear repulsion of
+    the linear hydrogen chain (host numpy)."""
+    from contractn_tpu_torch.models import chemistry as chem
+
+    syms, xyz = chem.h_chain_geometry(cfg["n_atoms"], cfg["r"])
+    basis, charges = chem.sto3g_basis(syms, xyz)
+    s, hcore, eri, e_nuc = chem.molecular_integrals(basis, charges, xyz)
+    e_hf, c, _ = chem.restricted_hartree_fock(s, hcore, eri, cfg["n_atoms"])
+    h1, g2 = chem.mo_transform(hcore, eri, c)
+    return h1, g2, e_hf + e_nuc, e_nuc
+
+
+def h_chain_path(device, smi, cfg):
+    """RHF, then the charge-masked ``chemistry_dmrg_u1`` of the hydrogen
+    chain (energies non-increasing over the sweeps, below RHF, N exact,
+    never below the exact energy, and at the JAX package's energy for this
+    route), and the penalty route ``chemistry_dmrg`` on the same operator
+    at the same bond, held against its own run at the bond that holds every
+    Schmidt rank of the chain (exact)."""
+    import importlib
+
+    from contractn_tpu_torch.models import chemistry as chem
+
+    u1 = importlib.import_module("contractn_tpu_torch.models.u1")
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    n = cfg["n_atoms"]
+    h1, g2, e_rhf, e_nuc = h_chain_integrals(cfg)
+    t0 = time.perf_counter()
+    mpo = chem.chemistry_mpo(h1, g2, symmetric=True, device=device)
+    sync()
+    t_mpo = time.perf_counter() - t0
+    log(f"  H{n} STO-3G, {cfg['r']} bohr spacing: {2 * n} spin-orbitals, {n} electrons, "
+        f"{len(chem.chemistry_terms(h1, g2))} terms; RHF {e_rhf:.10f}; charge-blocked "
+        f"MPO (W {mpo.cores.shape[3]}) compiled in {t_mpo:.1f} s (host AutoMPO and "
+        f"compression, {smi})")
+    traces, real = [], u1.dmrg_u1
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        traces.append(out[2].cpu())
+        return out
+
+    u1.dmrg_u1 = recording
+    try:
+        t0 = time.perf_counter()
+        e_u1, mps, _, masks = chem.chemistry_dmrg_u1(
+            h1, g2, n, bond_dim=cfg["bond"], sweeps=cfg["sweeps"], mpo=mpo,
+            generator=_gen(device, cfg["seed"]), device=device)
+        sync()
+        t_u1 = time.perf_counter() - t0
+    finally:
+        u1.dmrg_u1 = real
+    trace = [float(e) for e in traces[0]]
+    pen = {}
+    for bond in (cfg["bond"], cfg["full_bond"]):
+        t0 = time.perf_counter()
+        pen[bond], _, _ = chem.chemistry_dmrg(h1, g2, n, max_bond=bond,
+                                              sweeps=cfg["sweeps"], mpo=mpo, device=device)
+        sync()
+        pen[bond] = (pen[bond], time.perf_counter() - t0)
+    e_pen, t_pen = pen[cfg["bond"]]
+    e_full, t_full = pen[cfg["full_bond"]]
+    occ = mps.site_expectations(torch.diag(torch.tensor(
+        [0.0, 1.0], dtype=mps.cores.dtype, device=device))).sum()
+    leak = int(torch.count_nonzero(mps.cores * (1 - masks)))
+    log(f"    chemistry_dmrg_u1 bond {cfg['bond']}, {cfg['sweeps']} sweeps: {t_u1:.2f} s "
+        f"({smi}); energy trace {', '.join(f'{e + e_nuc:.10f}' for e in trace)} "
+        f"(total); final {e_u1 + e_nuc:.10f}, {e_u1 + e_nuc - e_rhf:+.6f} from RHF; "
+        f"<N> {float(occ):.12f}, entries outside the masks {leak}")
+    log(f"    chemistry_dmrg (penalty route, same operator): bond {cfg['bond']} "
+        f"{e_pen + e_nuc:.10f} in {t_pen:.2f} s, bond {cfg['full_bond']} (every "
+        f"Schmidt rank of {2 * n} spin-orbitals) {e_full + e_nuc:.10f} in {t_full:.2f} s: "
+        f"|difference| {abs(e_pen - e_full):.2e} (tol {cfg['pen_tol']}); the masked "
+        f"route at bond {cfg['bond']} lies {e_u1 - e_full:+.2e} above (its slots are "
+        f"split among the charge classes by u1_bond_charges) and "
+        f"{e_u1 - cfg['u1_ref']:+.2e} from the JAX package's {cfg['u1_ref']!r} "
+        f"(electronic; tol {cfg['u1_tol']})")
+    monotone = all(b <= a + 1e-10 * abs(a) for a, b in zip(trace, trace[1:]))
+    if not (monotone and e_u1 + e_nuc < e_rhf and leak == 0
+            and abs(float(occ) - n) <= 1e-10 and e_u1 >= e_full - 1e-8
+            and abs(e_u1 - cfg["u1_ref"]) <= cfg["u1_tol"]
+            and abs(e_pen - e_full) <= cfg["pen_tol"]):
+        raise AssertionError("hydrogen chain DMRG: energies, sector or routes off")
+    return mps
+
+
+def serve_ground(device, ground, batch, what):
+    """A ground state as float32 on configurations drawn by
+    ``sample_canonical``, through ``MPS.evaluate`` under ``torch.no_grad()``
+    (#1 on the card, exactly once), held against the plain version."""
+    from contractn_tpu_torch.models import MPS, right_canonicalize, sample_canonical
+    from contractn_tpu_torch.ops.cuda_mps import mps_evaluate_plain
+
+    rc, _ = right_canonicalize(ground)
+    samples, _ = sample_canonical(rc, batch, generator=_gen(device, 17))
+    x = torch.nn.functional.one_hot(samples, ground.phys_dim).to(torch.float32)
+    served = MPS(ground.cores.float(), ground.left.float(), ground.right.float())
+    reset_counters()
+    with torch.no_grad():
+        got = served.evaluate(x)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counters()["mps_evaluate"]
+    ref = mps_evaluate_plain(served.cores, served.left, served.right, x)
+    cond = mps_condition(served.cores, served.left, served.right, x)
+    log(f"  served the {what} ground state ({ground.n_sites} sites, d "
+        f"{ground.phys_dim}, bond {ground.bond_dim}, as float32) on {x.shape[0]} "
+        f"configurations from sample_canonical: #1 launches {launches}")
+    compare_split(got, ref, TOL_F32, f"{what} ground state through #1 vs plain", cond)
+    if device.type == "cuda" and launches != 1:
+        raise AssertionError(f"serving the {what} state launched #1 {launches} times")
+
+
+def water_anchor(device, smi, cfg):
+    """Frozen-core STO-3G water: RHF against the published value, DMRG
+    against the independent determinant FCI."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import chemistry as chem
+    from contractn_tpu_torch.models import gaussians as gau
+
+    half = np.deg2rad(cfg["angle"]) / 2.0
+    r = cfg["r_oh"]
+    xyz = np.array([[0.0, 0.0, 0.0], [r * np.sin(half), 0.0, r * np.cos(half)],
+                    [-r * np.sin(half), 0.0, r * np.cos(half)]])
+    basis, ch = gau.sto3g_shell_basis(["O", "H", "H"], xyz)
+    s, hcore, eri, e_nuc = gau.molecular_integrals_general(basis, ch, xyz)
+    e_hf, c, _ = chem.restricted_hartree_fock(s, hcore, eri, 10)
+    h1, g2 = chem.mo_transform(hcore, eri, c)
+    h1a, ga, _ = gau.freeze_core(h1, g2, 1)
+    t0 = time.perf_counter()
+    e_fci = chem.fci_ground(h1a, ga, n_elec=8)
+    t_fci = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_dmrg, _, _ = chem.chemistry_dmrg(h1a, ga, 8, max_bond=cfg["bond"],
+                                       sweeps=cfg["sweeps"], device=device)
+    t_dmrg = time.perf_counter() - t0
+    d_rhf = abs(e_hf + e_nuc - cfg["rhf_ref"])
+    d_fci = abs(e_dmrg - e_fci)
+    log(f"  frozen-core H2O STO-3G: RHF {e_hf + e_nuc:.6f} vs published "
+        f"{cfg['rhf_ref']} ({d_rhf:.1e}, tol {cfg['rhf_tol']}); chemistry_dmrg bond "
+        f"{cfg['bond']} {t_dmrg:.2f} s ({smi}) vs FCI ({t_fci:.2f} s on the host): "
+        f"|dE| {d_fci:.2e} (tol {cfg['fci_tol']})")
+    if not (d_rhf <= cfg["rhf_tol"] and d_fci <= cfg["fci_tol"]):
+        raise AssertionError("water anchor: RHF or DMRG off")
+
+
+def umps_evolve_path(device, smi, cfg):
+    """Imaginary-time ``umps_mpo_evolve`` of the infinite TFIM from a
+    product state, card against CPU through gauge-invariant local values."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import correlate, expect_local, tfim_mpo
+    from contractn_tpu_torch.models.mpo_evolution import umps_mpo_evolve
+
+    cpu = torch.device("cpu")
+    h_core = tfim_mpo(2, h=cfg["h"], device=cpu).cores[0].numpy()
+    v = np.array([np.cos(0.3), np.sin(0.3)])
+    x = np.array([[0.0, 1.0], [1.0, 0.0]])
+    z = np.diag([1.0, -1.0])
+    vals, secs = {}, {}
+    for dev in (device, cpu):
+        t0 = time.perf_counter()
+        core = umps_mpo_evolve(v[:, None, None], h_core, cfg["t"], cfg["steps"],
+                               cfg["bond"], imag=True, device=dev)
+        secs[dev.type] = time.perf_counter() - t0
+        core = core.cpu()
+        vals[dev.type] = np.array([expect_local(core, x, device=cpu),
+                                   expect_local(core, z, device=cpu),
+                                   correlate(core, z, z, [1, 3], device=cpu)[1]])
+    diff = float(np.abs(vals[device.type] - vals["cpu"]).max())
+    log(f"  umps_mpo_evolve TFIM h {cfg['h']}, imaginary time {cfg['t']} in "
+        f"{cfg['steps']} steps, bond {cfg['bond']}: card {secs[device.type]:.2f} s, "
+        f"CPU {secs['cpu']:.2f} s ({smi}); <X>, <Z>, <Z_0 Z_3>_c "
+        f"{', '.join(f'{float(np.real(a)):.10f}' for a in vals['cpu'])}; "
+        f"max |card - CPU| {diff:.2e} (tol {cfg['tol']})")
+    if not diff <= cfg["tol"]:
+        raise AssertionError("uniform W^II evolution: card and CPU disagree")
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -2111,6 +2571,14 @@ def physics_phase(device, smi):
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
 
+def infinite_phase(device, smi):
+    log("== 10. infinite chains and chemistry")
+    t10 = time.perf_counter()
+    for path, (counts, secs) in infinite_chains(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+
+
 def main():
     if not (ROOT / "contractn_tpu_torch" / "__init__.py").is_file():
         fail(f"no contractn_tpu_torch package beside {Path(__file__).name}; "
@@ -2123,8 +2591,9 @@ def main():
     log("== 2. build")
     phase_build()
     kernel_smem(device)
-    if sys.argv[1:] == ["--physics-only"]:  # phases 1, 2 and 9 alone; no result lines
-        physics_phase(device, smi)
+    only = {"--physics-only": physics_phase, "--infinite-only": infinite_phase}
+    if len(sys.argv) == 2 and sys.argv[1] in only:  # phases 1, 2 and one more alone
+        only[sys.argv[1]](device, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         return
     log("== 3. kernels against their plain versions")
@@ -2160,6 +2629,7 @@ def main():
     for path, (counts, secs) in finite_chains(device, smi).items():
         log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
     physics_phase(device, smi)
+    infinite_phase(device, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 The JAX package's ``MPS`` and ``MPO`` hold their parameters as arrays; pass
 them through ``numpy.asarray`` and hand them to ``mps_from_numpy`` /
-``mpo_from_numpy`` to get this package's objects on ``device`` (default
-``cuda``; raises without a GPU unless ``device="cpu"``), with the same dtype
-and values.  ``mps_to_numpy`` / ``mpo_to_numpy`` go the other way, so
+``mpo_from_numpy`` (a VUMPS ground dict to ``ground_from_numpy``) to get
+this package's objects on ``device`` (default ``cuda``; raises without a
+GPU unless ``device="cpu"``), with the same dtype and values.
+``mps_to_numpy`` / ``mpo_to_numpy`` / ``ground_to_numpy`` go the other way, so
 parameters trained here can be held against the JAX package.  The tests use
 them so that both packages compute on identical data.
 """
@@ -49,3 +50,58 @@ def mps_to_numpy(mps):
 def mpo_to_numpy(mpo):
     """``(cores, left, right)`` of an ``MPO`` as numpy arrays on the host."""
     return _host((mpo.cores, mpo.left, mpo.right))
+
+
+_GROUND_TENSORS = ("al", "ar", "ac", "c")
+_CELL_TENSORS = ("als", "ars", "acs", "cs")
+
+
+def ground_from_numpy(ground, device=None):
+    """A VUMPS ground dict of either package (``vumps`` / ``vumps_u1``:
+    ``al, ar, ac, c``; ``vumps_cell`` / ``vumps_u1_cell``: the per-site
+    tuples ``als, ars, acs, cs``) with its tensors as this package's tensors
+    on ``device``; ``energy`` (and ``energies``, ``gradient_norm``) carried
+    over as host floats, a charge ``sector`` rebuilt from its ladders."""
+    device = resolve_device(device)
+    out = {}
+    for key in _GROUND_TENSORS:
+        if key in ground:
+            out[key] = as_tensor(np.asarray(ground[key]), device)
+    for key in _CELL_TENSORS:
+        if key in ground:
+            out[key] = tuple(as_tensor(np.asarray(a), device) for a in ground[key])
+    for key in ("energy", "energy_per_site", "gradient_norm"):
+        if key in ground:
+            out[key] = float(ground[key])
+    if "energies" in ground:
+        out["energies"] = [float(e) for e in ground["energies"]]
+    sector = ground.get("sector")
+    if sector is not None:
+        bond = int(sector["bond_dim"])
+        if "phys_list" in sector:
+            from .models.u1_vumps_cell import u1_cell_sector
+
+            out["sector"] = u1_cell_sector(
+                [list(p) for p in sector["phys_list"]], bond,
+                charges=[np.asarray(q) for q in sector["charges"]],
+                device=device)
+        else:
+            from .models.u1_vumps import u1_uniform_sector
+
+            out["sector"] = u1_uniform_sector(
+                list(sector["phys_charges"]), bond,
+                charges=np.asarray(sector["charges"]), device=device)
+    return out
+
+
+def ground_to_numpy(ground):
+    """The tensors of a VUMPS ground dict (single-site or cell) as host numpy
+    arrays, with ``energy`` as a float."""
+    out = {"energy": float(ground["energy"])}
+    for key in _GROUND_TENSORS:
+        if key in ground:
+            out[key] = _host((ground[key],))[0]
+    for key in _CELL_TENSORS:
+        if key in ground:
+            out[key] = _host(ground[key])
+    return out

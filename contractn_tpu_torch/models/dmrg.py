@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.krylov import lanczos_ground
+from ..ops.linalg_ad import dense_eigh
 from ..ops.stabilize import peinsum
 from ..utils.device import as_tensor, resolve_device
 from .mpo import MPO, _uniform_mpo, mpo_sum
@@ -128,7 +129,7 @@ def _local_ground_state(L, w1, w2, R, theta0=None):
     dl, dr = L.shape[0], R.shape[0]
     if d * d * dl * dr > _DENSE_EIGH_LIMIT and theta0 is not None:
         return _lanczos_ground(L, w1, w2, R, theta0)
-    vals, vecs = torch.linalg.eigh(_dense_heff(L, w1, w2, R))
+    vals, vecs = dense_eigh(_dense_heff(L, w1, w2, R))
     return float(vals[0]), vecs[:, 0].reshape(d, d, dl, dr)
 
 
@@ -190,7 +191,7 @@ def _local_ground_penalized(L, w1, w2, R, theta0, penalties):
     for w, pg in penalties:
         v = pg.reshape(-1)
         hmat = hmat + w * torch.outer(v, v.conj())
-    vals, vecs = torch.linalg.eigh(hmat)
+    vals, vecs = dense_eigh(hmat)
     return float(vals[0]), vecs[:, 0].reshape(d, d, dl, dr)
 
 

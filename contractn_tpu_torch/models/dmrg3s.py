@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.krylov import lanczos_ground
+from ..ops.linalg_ad import dense_eigh
 from ..ops.stabilize import peinsum
 from .dmrg import (
     _DENSE_EIGH_LIMIT,
@@ -37,7 +38,7 @@ def _ground_one_site(envs_l, w, envs_r, m0, iters=24):
                               iters)
     # H[(a,i,j), (b,p,q)] = L[i,w,p] W[a,b,w,v] R[j,v,q]
     hmat = peinsum("iwp,abwv,jvq->aijbpq", envs_l, w, envs_r).reshape(dim, dim)
-    vals, vecs = torch.linalg.eigh(0.5 * (hmat + hmat.conj().T))
+    vals, vecs = dense_eigh(0.5 * (hmat + hmat.conj().T))
     return float(vals[0]), vecs[:, 0].reshape(d, dl, dr)
 
 

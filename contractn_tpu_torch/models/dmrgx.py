@@ -17,6 +17,7 @@ data.
 import numpy as np
 import torch
 
+from ..ops.linalg_ad import dense_eigh
 from ..ops.stabilize import peinsum
 from .dmrg import (
     _boundary,
@@ -44,7 +45,7 @@ def _local_max_overlap(L, w1, w2, R, theta0):
     host read: the chosen index and its eigenvalue)."""
     d = w1.shape[0]
     dl, dr = L.shape[0], R.shape[0]
-    vals, vecs = torch.linalg.eigh(_dense_heff(L, w1, w2, R))
+    vals, vecs = dense_eigh(_dense_heff(L, w1, w2, R))
     ovl = peinsum("dk,d->k", vecs.conj(), theta0.reshape(-1)).abs()
     k = int(torch.argmax(ovl))
     return float(vals[k]), vecs[:, k].reshape(d, d, dl, dr)

@@ -14,16 +14,12 @@ unchanged.  Fixed ``(N_up, N_dn)`` sectors run through the charge-masked
 DMRG of :mod:`.u1` with packed per-orbital charges.  Sign conventions follow
 ``fermions2d`` (``n = (I+Z)/2``, occupied first).  The Fock-space oracles
 are dense host numpy, for small lattices only.
-
-Departure until the infinite-chain layer (ROADMAP Queue A §9) lands:
-:func:`hubbard_vumps` raises :class:`~..utils.errors.TNError`.
 """
 
 import numpy as np
 import torch
 
 from ..utils.device import as_tensor, resolve_device
-from ..utils.errors import TNError
 from .fermions2d import _I2, _SM, _SP, _Z, snake_index, string_mpo
 from .mpo import MPO
 
@@ -202,13 +198,36 @@ def hubbard_relative_charges(a=32):
 
 
 def hubbard_vumps(u, t=1.0, bond_dims=(16, 32), iters=100, lanczos_iters=40,
-                  generator=None):
-    """Infinite half-filled Hubbard chain by charge-masked VUMPS — needs the
-    infinite-chain layer (ROADMAP Queue A §9); raises ``TNError`` until it
-    lands."""
-    raise TNError(
-        "hubbard_vumps needs the charge-masked VUMPS of the infinite-chain "
-        "layer (ROADMAP Queue A §9), which this package does not have yet")
+                  generator=None, device=None):
+    """Infinite half-filled Hubbard chain by charge-masked VUMPS.
+
+    Folds two lattice sites (the d=16 block of :func:`hubbard_chain_cell`)
+    and confines the uniform MPS structurally to the half-filled
+    zero-magnetization sector via the packed relative charges.
+    ``bond_dims`` is the warm-started growth schedule (each bond starts from
+    the previous one's state, :func:`~.u1_vumps.expand_sector_state`).
+    ``generator`` draws the first start and the growth noise; ``device``
+    defaults to ``cuda``.
+
+    Returns the :func:`~.u1_vumps.vumps_u1` result with ``energy_per_site``
+    added (cell energy / 2); compare :func:`lieb_wu_energy`.
+    """
+    from .mpo import block_mpo
+    from .u1_vumps import expand_sector_state, vumps_u1
+
+    cell4 = hubbard_chain_cell(t=t, u=u, mu=0.0, device=device)
+    rep = cell4.cores[0].expand((2,) + tuple(cell4.cores.shape[1:]))
+    cell16 = block_mpo(MPO(rep, cell4.left, cell4.right), 2)
+    phys = hubbard_relative_charges()
+    res = None
+    for bond in bond_dims:
+        init = (None if res is None
+                else expand_sector_state(res, bond, generator=generator))
+        res = vumps_u1(cell16, bond, phys, iters=iters,
+                       lanczos_iters=lanczos_iters, generator=generator,
+                       init=init)
+    res["energy_per_site"] = res["energy"] / 2.0
+    return res
 
 
 def spin_densities(mps, lx, ly):

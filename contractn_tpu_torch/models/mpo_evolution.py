@@ -13,16 +13,16 @@ propagator cores are built on the host (scipy ``expm``) and go to the
 Hamiltonian's device; each step is an exact MPO-MPS product plus SVD
 compression there.
 
-Departure until the infinite-chain layer (ROADMAP Queue A §9) lands:
-:func:`umps_apply`, :func:`umps_mpo_evolve` and
-:func:`umps_mpo_evolve_driven` raise :class:`~..utils.errors.TNError`.
+Infinite chains (:func:`umps_mpo_evolve`) apply the uniform propagator core
+to a uniform MPS core and truncate in the Schmidt basis of
+:func:`~.vumps.mixed_gauge`, on the core's device.
 """
 
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device, torch_dtype
-from ..utils.errors import TNError
+from ..ops.stabilize import peinsum
+from ..utils.device import as_tensor, resolve_device, torch_dtype
 from .boundary import apply_mpo_to_mps
 from .canonical import compress
 from .mpo import MPO
@@ -152,28 +152,87 @@ def exp_decay_ising_mpo(n_sites, j=1.0, lam=0.5, h=1.0, dtype=torch.complex128,
     return MPO(cores.to(device, dtype), left, right)
 
 
-def _needs_vumps(name):
-    raise TNError(
-        f"{name} needs the uniform-MPS gauge (vumps.mixed_gauge) of the "
-        "infinite-chain layer (ROADMAP Queue A §9), which this package does "
-        "not have yet")
-
-
 def umps_apply(core, op_core, bond_dim):
-    """Apply a uniform MPO core to a uniform MPS core and truncate — needs
-    the infinite-chain layer (Queue A §9); raises ``TNError`` until then."""
-    _needs_vumps("umps_apply")
+    """Apply a uniform MPO core to a uniform MPS core and truncate.
+
+    The fused ``(d, W*D, W*D)`` core is brought to mixed canonical gauge
+    (:func:`~.vumps.mixed_gauge` fixes the bond to the Schmidt basis,
+    singular values sorted), so truncation to ``bond_dim`` is a slice of
+    ``AL`` (Zaletel et al., PRB 91, 165112, section V), on the core's
+    device.
+
+    Returns ``(new_core, trunc_err)``: the sliced left-isometric core and the
+    discarded Schmidt weight (a 0-d tensor).
+    """
+    from .vumps import mixed_gauge
+
+    device = resolve_device(None, (core,))
+    core = as_tensor(core, device)
+    op_core = as_tensor(op_core, device)
+    dt = torch.promote_types(core.dtype, op_core.dtype)
+    core, op_core = core.to(dt), op_core.to(dt)
+    d, dd, _ = core.shape
+    w = op_core.shape[2]
+    k = min(int(bond_dim), w * dd)
+    big = peinsum("stwv,tij->swivj", op_core, core).reshape(d, w * dd, w * dd)
+    al, _, c = mixed_gauge(big)
+    s = torch.real(torch.diagonal(c))
+    err = 1.0 - (s[:k] ** 2).sum() / (s ** 2).sum()
+    return al[:, :k, :k], err
+
+
+def _wii_pair(h_core, delta, order):
+    if order == 2:
+        return [wii_core(h_core, delta * (1 + 1j) / 2),
+                wii_core(h_core, delta * (1 - 1j) / 2)]
+    if order == 1:
+        return [wii_core(h_core, delta)]
+    raise ValueError("order must be 1 or 2")
+
+
+def _start_core(core0, device):
+    device = resolve_device(device, (core0,))
+    return as_tensor(core0, device, torch.complex128)
 
 
 def umps_mpo_evolve(core0, h_core, t, n_steps, bond_dim, imag=False, order=2,
-                    callback=None):
-    """W^II evolution of an infinite chain — needs the infinite-chain layer
-    (Queue A §9); raises ``TNError`` until then."""
-    _needs_vumps("umps_mpo_evolve")
+                    callback=None, device=None):
+    """Evolve an INFINITE chain: ``exp(-i H t)`` (or ``exp(-H t)``) applied to
+    a uniform MPS by repeated uniform-W^II application (long-range
+    Hamiltonians directly in the thermodynamic limit).  ``h_core`` is a
+    triangular bulk core; ``order=2`` composes the conjugate pair ``delta (1
+    +- i)/2`` per step.  ``device``: where to compute (default: ``core0``'s
+    device, else ``cuda``).
+
+    Returns the final ``(d, D, D)`` complex128 uniform core (for the
+    :mod:`.umps` observables).  ``callback(k, core)`` runs after each step.
+    """
+    dt_step = t / n_steps
+    delta = -dt_step if imag else -1j * dt_step
+    core = _start_core(core0, device)
+    props = [torch.from_numpy(p).to(core.device)
+             for p in _wii_pair(h_core, delta, order)]
+    for k in range(int(n_steps)):
+        for p in props:
+            core, _ = umps_apply(core, p, bond_dim)
+        if callback is not None:
+            callback(k, core)
+    return core
 
 
 def umps_mpo_evolve_driven(core0, h_core_fn, t, n_steps, bond_dim, order=2,
-                           callback=None):
-    """Time-dependent W^II evolution of an infinite chain — needs the
-    infinite-chain layer (Queue A §9); raises ``TNError`` until then."""
-    _needs_vumps("umps_mpo_evolve_driven")
+                           callback=None, device=None):
+    """Time-DEPENDENT evolution of an infinite chain, ``T exp(-i int H(s)
+    ds)``, by the midpoint rule: each step propagates with the W^II cores of
+    ``h_core_fn(t_k + dt/2)`` (rebuilt per step on the host).  Returns the
+    final ``(d, D, D)`` uniform core, as :func:`umps_mpo_evolve`."""
+    dt_step = t / n_steps
+    core = _start_core(core0, device)
+    for k in range(int(n_steps)):
+        for p in _wii_pair(h_core_fn((k + 0.5) * dt_step), -1j * dt_step,
+                           order):
+            core, _ = umps_apply(core, torch.from_numpy(p).to(core.device),
+                                 bond_dim)
+        if callback is not None:
+            callback(k, core)
+    return core

@@ -20,6 +20,11 @@ through.
 
 ``axis_name`` (inner products summed over a mesh axis in the JAX package)
 raises :class:`TNError` until this package has its mesh layer.
+
+:func:`gmres` stands in for ``jax.scipy.sparse.linalg.gmres`` (torch has
+none), the solver the JAX package's infinite-chain environments call; it
+follows jax 0.9.0's ``solve_method="batched"`` step for step and takes the
+same ``batch_ndim`` knob.
 """
 
 import numpy as np
@@ -218,3 +223,100 @@ def arnoldi_eigs(matvec, v0, iters, k=2):
     out = np.zeros((k,), complex)
     out[: min(k, m)] = vals[:k]
     return out, lead
+
+
+def _safe_normalize(x, thresh):
+    """``(x / |x|, |x|)`` per member, or zeros where ``|x| <= thresh``
+    (jax's ``_safe_normalize``)."""
+    nrm = _norm(x)
+    use = nrm > thresh
+    unit = torch.where(use[..., None], x / torch.where(use, nrm, 1.0)[..., None]
+                       .to(x.dtype), torch.zeros_like(x))
+    return unit, torch.where(use, nrm, torch.zeros_like(nrm))
+
+
+def _gmres_cycle(apply, b, x, unit, rnorm, restart):
+    """One restart cycle of jax 0.9.0's ``_gmres_batched`` for every member:
+    ``restart`` Arnoldi steps (one classical Gram-Schmidt pass, as jax's
+    ``_iterative_classical_gram_schmidt`` runs with ``max_iterations=2``:
+    its loop condition stops it after the first pass), each member frozen
+    from its breakdown on; then the small least-squares problem through its
+    normal equations, solved by Cholesky as jax's ``_lstsq`` does."""
+    batch, n = x.shape[:-1], x.shape[-1]
+    dt = x.dtype
+    eps = torch.finfo(real_dtype(dt)).eps
+    basis = torch.zeros(batch + (restart + 1, n), dtype=dt, device=x.device)
+    basis[..., 0, :] = unit
+    # rows of H are jax's ``H[k, :]``; identity rows stand in for the steps
+    # a member never takes, keeping its normal equations nonsingular
+    hess = torch.eye(restart, restart + 1, dtype=dt, device=x.device).expand(
+        batch + (restart, restart + 1)).clone()
+    broken = torch.zeros(batch, dtype=torch.bool, device=x.device)
+    for k in range(restart):
+        v = apply(basis[..., k, :])
+        _, nrm0 = _safe_normalize(v, eps)
+        h = peinsum("...kn,...n->...k", basis.conj(), v)
+        v = v - peinsum("...k,...kn->...n", h, basis)
+        v, nrm1 = _safe_normalize(v, eps * nrm0)
+        h[..., k + 1] = nrm1.to(dt)
+        live = ~broken
+        basis[..., k + 1, :] = torch.where(live[..., None], v,
+                                           basis[..., k + 1, :])
+        hess[..., k, :] = torch.where(live[..., None], h, hess[..., k, :])
+        broken = broken | (nrm1 == 0)
+    beta = torch.zeros(batch + (restart + 1,), dtype=dt, device=x.device)
+    beta[..., 0] = rnorm.to(dt)
+    gram = peinsum("...ij,...kj->...ik", hess.conj(), hess)
+    rhs = peinsum("...ij,...j->...i", hess.conj(), beta)
+    factor, info = torch.linalg.cholesky_ex(gram)
+    y = torch.cholesky_solve(rhs[..., None], factor)[..., 0]
+    y = torch.where((info == 0)[..., None], y, torch.full_like(y, float("nan")))
+    x = x + peinsum("...k,...kn->...n", y, basis[..., :-1, :])
+    unit, rnorm = _safe_normalize(b - apply(x), eps)
+    return x, unit, rnorm
+
+
+def gmres(matvec, b, x0=None, tol=1e-5, atol=0.0, restart=20, maxiter=None,
+          batch_ndim=0):
+    """Solve ``A x = b`` by restarted GMRES, as jax 0.9.0's
+    ``jax.scipy.sparse.linalg.gmres(..., solve_method="batched")`` does.
+
+    ``matvec`` maps a tensor of ``b``'s shape to one of the same shape
+    (real or complex).  ``restart`` is clipped to the system size and
+    ``maxiter`` counts restart cycles (default ``10 * size``).  A member
+    stops once ``|b - A x| <= max(tol |b|, atol)``.  The first
+    ``batch_ndim`` axes of ``b`` are a batch of independent systems; each
+    member stops on its own residual and is frozen from then on, as under
+    ``jax.vmap`` of jax's ``while_loop``.  The loop reads the host once a
+    restart cycle (whether any member is still running).
+
+    Returns ``(x, info)``: ``info`` is 0, or -1 where ``x`` is NaN (jax's
+    convention), per member.
+    """
+    batch = tuple(b.shape[:batch_ndim])
+    shape = tuple(b.shape[batch_ndim:])
+    flat_b = b.reshape(batch + (-1,))
+    size = flat_b.shape[-1]
+    restart = min(int(restart), size)
+    maxiter = 10 * size if maxiter is None else int(maxiter)
+    x = (torch.zeros_like(flat_b) if x0 is None
+         else x0.reshape(batch + (-1,)).to(b.dtype).clone())
+
+    def apply(v):
+        return matvec(v.reshape(batch + shape)).reshape(batch + (-1,))
+
+    eps = torch.finfo(real_dtype(b.dtype)).eps
+    bound = torch.clamp(tol * _norm(flat_b), min=atol)
+    unit, rnorm = _safe_normalize(flat_b - apply(x), eps)
+    cycles = torch.zeros(batch, dtype=torch.int64, device=b.device)
+    running = rnorm > bound
+    while maxiter > 0 and bool(running.any()):
+        new_x, new_unit, new_rnorm = _gmres_cycle(apply, flat_b, x, unit, rnorm,
+                                                  restart)
+        x = torch.where(running[..., None], new_x, x)
+        unit = torch.where(running[..., None], new_unit, unit)
+        rnorm = torch.where(running, new_rnorm, rnorm)
+        cycles = cycles + running.to(torch.int64)
+        running = (cycles < maxiter) & (rnorm > bound)
+    info = torch.where(torch.isnan(_norm(x)), -1, 0)
+    return x.reshape(b.shape), (int(info) if batch_ndim == 0 else info)

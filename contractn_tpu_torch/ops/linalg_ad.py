@@ -143,3 +143,21 @@ def svd_safe(m, eps=_EPS):
     inverses (rank deficiency).  Real or complex ``(m, n)`` input.
     """
     return _SvdSafe.apply(m, eps)
+
+
+def dense_eigh(h):
+    """``torch.linalg.eigh`` of a dense Hermitian matrix, for the local
+    solvers.  On the CPU, MKL's divide-and-conquer driver can fail to
+    converge on the exactly degenerate spectra of zero-padded effective
+    Hamiltonians (it raises ``LinAlgError`` on finite symmetric matrices
+    that LAPACK's other builds diagonalize); there the same matrix goes
+    through numpy's LAPACK.  On the card a failure still raises."""
+    try:
+        return torch.linalg.eigh(h)
+    except torch.linalg.LinAlgError:
+        if h.device.type != "cpu":
+            raise
+        import numpy as np
+
+        vals, vecs = np.linalg.eigh(h.detach().numpy())
+        return torch.from_numpy(vals), torch.from_numpy(vecs)

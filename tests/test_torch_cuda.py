@@ -166,6 +166,15 @@ def test_physics_chains_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_infinite_chains_on_gpu(cuda_device):
+    # phase 10 at its rehearsal size: every check (card against CPU where
+    # the phase compares them), and #1 launched exactly once, serving the
+    # hydrogen-chain ground state
+    runs = chip_smoke.infinite_chains(cuda_device, "test", chip_smoke.INFINITE_TINY)
+    assert runs["serve_h_chain"][0]["mps_evaluate"] == 1
+
+
+@pytest.mark.cuda
 def test_contract_gradient_lands_on_the_operand_device(cuda_device):
     import contractn_tpu_torch as ttn
 

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from contractn_tpu_torch.convert import mpo_to_numpy
-from contractn_tpu_torch.utils.errors import TNError
 
 jf = import_module("contractn_tpu.models.fermions")
 tf = import_module("contractn_tpu_torch.models.fermions")
@@ -129,9 +128,45 @@ def test_hubbard_builders_and_oracles_match_jax():
         assert abs(th.hubbard_charge_gap(u) - jh.hubbard_charge_gap(u)) < TOL
 
 
-def test_hubbard_vumps_raises_until_infinite_chains():
-    with pytest.raises(TNError, match="§9"):
-        th.hubbard_vumps(4.0)
+def test_hubbard_vumps_matches_jax():
+    """The infinite half-filled Hubbard chain at the JAX test's U = 8 (the
+    d = 16 folded cell, charge-masked VUMPS) at bond 16: both packages
+    start from the same draws and gauge (the JAX module's draw is patched
+    and its aligned orthogonalization is the port's, whose singular
+    vectors carry this build's LAPACK signs), and their energy traces
+    agree."""
+    import jax
+    import jax.numpy as jnp
+
+    ju = import_module("contractn_tpu.models.u1_vumps")
+    tu = import_module("contractn_tpu_torch.models.u1_vumps")
+    tu1 = import_module("contractn_tpu_torch.models.u1")
+    a0 = np.random.default_rng(0).normal(size=(16, 16, 16))
+
+    def port_ortho(mat, row_sel, slot_sel):
+        sel = torch.from_numpy(np.array(slot_sel))
+        q, c = tu1._aligned_ortho(torch.from_numpy(np.array(mat)),
+                                  torch.from_numpy(np.array(row_sel)), sel,
+                                  tu._rank(sel))
+        return jnp.asarray(q.numpy()), jnp.asarray(c.numpy())
+
+    real_normal, real_ortho = jax.random.normal, ju._aligned_ortho
+    jax.random.normal = lambda key, shape, dtype=None: jnp.asarray(a0, dtype)
+    ju._aligned_ortho = port_ortho
+    try:
+        want = jh.hubbard_vumps(8.0, bond_dims=(16,), iters=8)
+    finally:
+        jax.random.normal, ju._aligned_ortho = real_normal, real_ortho
+    real_randn = torch.randn
+    torch.randn = lambda *a, **k: torch.from_numpy(a0.copy())
+    try:
+        got = th.hubbard_vumps(8.0, bond_dims=(16,), iters=8, device="cpu")
+    finally:
+        torch.randn = real_randn
+    np.testing.assert_allclose(got["energies"], want["energies"], atol=TOL)
+    assert abs(got["energy_per_site"] - want["energy_per_site"]) < TOL
+    mask = got["sector"]["site_mask"]
+    assert not any((got[k] * (1 - mask)).any() for k in ("al", "ar", "ac"))
 
 
 @pytest.mark.parametrize("n_up, n_dn", [(2, 2), (2, 1)])

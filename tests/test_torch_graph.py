@@ -153,6 +153,7 @@ def _port_files():
         PORT.parent / "chip_smoke.py",
         PORT.parent / "scripts" / "profile_training_cuda.py",
         PORT.parent / "scripts" / "profile_chains_cuda.py",
+        PORT.parent / "scripts" / "time_chemistry_mpo.py",
     ]
 
 
@@ -163,7 +164,8 @@ def test_scans_cover_every_ported_module():
                    "models/dmrg.py", "models/autompo.py", "models/ensemble.py",
                    "models/tdvp.py", "models/dmrgx.py", "models/dmrg3s.py",
                    "models/itebd.py", "models/circuits.py", "models/linsolve.py",
-                   "models/chebyshev.py", *(f"models/{m}.py" for m in SLICE7)):
+                   "models/chebyshev.py", "models/excitations.py",
+                   *(f"models/{m}.py" for m in SLICE7 + SLICE8)):
         assert module in scanned, module
     assert all(p.is_file() for p in _port_files())
 
@@ -172,6 +174,9 @@ def test_scans_cover_every_ported_module():
 SLICE7 = ("fermions", "fermions2d", "spin2d", "u1", "hubbard", "quantics", "tci",
           "circuit_compile", "metts", "trajectories", "mpo_evolution", "lindblad",
           "dynamical", "operator_dynamics", "noisy")
+# Queue A §8.8 and §9.0-§9.2 (``excitations`` exports nothing from models/)
+SLICE8 = ("gaussians", "chemistry", "vumps", "umps", "vumps_cell",
+          "excitations_cell", "u1_vumps", "u1_vumps_cell")
 
 
 def test_models_export_the_jax_names_of_each_ported_module():
@@ -181,14 +186,14 @@ def test_models_export_the_jax_names_of_each_ported_module():
         tree = ast.parse((pkg_dir / "models" / "__init__.py").read_text())
         out = {}
         for node in tree.body:
-            if isinstance(node, ast.ImportFrom) and node.module in SLICE7:
+            if isinstance(node, ast.ImportFrom) and node.module in SLICE7 + SLICE8:
                 out.setdefault(node.module, set()).update(
                     a.asname or a.name for a in node.names)
         return out
 
     want = exported(PORT.parent / "contractn_tpu")
     got = exported(PORT)
-    assert set(want) == set(SLICE7) and got == want
+    assert set(want) == set(SLICE7 + SLICE8) and got == want
     import contractn_tpu_torch.models as models
 
     for names in got.values():
@@ -272,6 +277,15 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         MPS.random(4, 2, 3)
     with pytest.raises(ttn.TNError, match="device='cpu'"):
         tfim_mpo(4)
+    from contractn_tpu_torch.models import hubbard_vumps, transfer_spectrum
+    from contractn_tpu_torch.models.chemistry import chemistry_mpo
+
+    with pytest.raises(ttn.TNError, match="device='cpu'"):
+        hubbard_vumps(4.0)
+    with pytest.raises(ttn.TNError, match="device='cpu'"):
+        transfer_spectrum(np.ones((2, 1, 1)))
+    with pytest.raises(ttn.TNError, match="device='cpu'"):
+        chemistry_mpo(np.eye(2), np.zeros((2, 2, 2, 2)) + 0.1)
     # the CPU stays available on request, and torch operands keep theirs
     out = ttn.contract("ab,b->a", np.ones((2, 2)), np.ones(2), device="cpu")
     assert out.device.type == "cpu"

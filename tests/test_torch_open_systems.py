@@ -20,7 +20,6 @@ import torch
 
 from contractn_tpu_torch.convert import mpo_to_numpy, mps_from_numpy, mps_to_numpy
 from contractn_tpu_torch.models.mps import MPS
-from contractn_tpu_torch.utils.errors import TNError
 
 je = import_module("contractn_tpu.models.mpo_evolution")
 te = import_module("contractn_tpu_torch.models.mpo_evolution")
@@ -151,12 +150,75 @@ def test_mpo_evolve_matches_jax(imag):
     assert abs(abs(np.vdot(want, _td(got))) - 1.0) < TOL
 
 
-@pytest.mark.parametrize("name, args", [
-    ("umps_apply", (None, None, 4)), ("umps_mpo_evolve", (None, None, 1.0, 2, 4)),
-    ("umps_mpo_evolve_driven", (None, lambda t: None, 1.0, 2, 4))])
-def test_infinite_evolvers_raise_until_infinite_chains(name, args):
-    with pytest.raises(TNError, match="§9"):
-        getattr(te, name)(*args)
+def _tfim_core(h):
+    from contractn_tpu.models.dmrg import tfim_mpo
+
+    return np.array(tfim_mpo(2, h=h).cores[0])
+
+
+def _umps_observables(core, pkg):
+    """``(<X>, <Z>, <Z_0 Z_1>_c)`` of a uniform core, through ``pkg``'s own
+    transfer-matrix tooling."""
+    if pkg == "jax":
+        from contractn_tpu.models import umps
+
+        core, kw = jnp.asarray(np.asarray(core)), {}
+    else:
+        from contractn_tpu_torch.models import umps
+
+        kw = {"device": "cpu"}
+    return (umps.expect_local(core, X, **kw), umps.expect_local(core, Z, **kw),
+            umps.correlate(core, Z, Z, [1], **kw)[0])
+
+
+def test_umps_apply_matches_jax():
+    """One fused W^II application and Schmidt truncation: the same
+    discarded weight and the same state (local values) as the JAX
+    package's, untruncated and truncated."""
+    prop = je.wii_core(_tfim_core(1.1), -0.05)
+    v = np.array([1.0, 0.4]) / np.linalg.norm([1.0, 0.4])
+    core = v[:, None, None].astype(complex)
+    jcore, tcore = jnp.asarray(core), torch.from_numpy(core)
+    for bond in (8, 8, 3):
+        jcore, jerr = je.umps_apply(jcore, jnp.asarray(prop), bond)
+        tcore, terr = te.umps_apply(tcore, torch.from_numpy(prop), bond)
+        assert tuple(tcore.shape) == tuple(jcore.shape)
+        assert abs(float(terr) - float(jerr)) < TOL
+    assert 0.0 < float(terr) < 1e-4
+    np.testing.assert_allclose(_umps_observables(tcore, "torch"),
+                               _umps_observables(jcore, "jax"), atol=TOL)
+
+
+@pytest.mark.parametrize("imag", [False, True])
+def test_umps_mpo_evolve_matches_jax(imag):
+    """Infinite TFIM (h = 1.5) from a product state, bond 6, in imaginary
+    or real time: the evolved state's local values equal the JAX
+    package's."""
+    v = np.array([np.cos(0.3), np.sin(0.3)])
+    core0 = v[:, None, None]
+    kw = dict(imag=imag)
+    want = je.umps_mpo_evolve(jnp.asarray(core0), _tfim_core(1.5), 0.4, 4, 6, **kw)
+    got = te.umps_mpo_evolve(core0, _tfim_core(1.5), 0.4, 4, 6, device="cpu", **kw)
+    assert got.dtype == torch.complex128 and got.shape == want.shape
+    np.testing.assert_allclose(_umps_observables(got, "torch"),
+                               _umps_observables(want, "jax"), atol=TOL)
+
+
+def test_umps_mpo_evolve_driven_matches_jax():
+    """A TFIM field ramp h: 2.0 -> 1.4 (midpoint W^II cores rebuilt each
+    step), bond 6: the same state as the JAX package's."""
+    def h_core(t):
+        return _tfim_core(2.0 - 0.6 * t / 0.4)
+
+    v = np.array([np.cos(0.3), np.sin(0.3)])
+    core0 = v[:, None, None]
+    seen = []
+    want = je.umps_mpo_evolve_driven(jnp.asarray(core0), h_core, 0.4, 4, 6)
+    got = te.umps_mpo_evolve_driven(core0, h_core, 0.4, 4, 6, device="cpu",
+                                    callback=lambda k, c: seen.append(k))
+    assert seen == [0, 1, 2, 3]
+    np.testing.assert_allclose(_umps_observables(got, "torch"),
+                               _umps_observables(want, "jax"), atol=TOL)
 
 
 def test_liouvillian_and_automaton_match_jax():
