@@ -50,7 +50,7 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    diagonalization; ``bp_ground_state`` on a 32-site TFIM ring, card against
    CPU in float64; the chain's plan items must equal the JAX package's;
 8. finite chains (``CHAINS``): two-site DMRG of the 100-site spin-1
-   Heisenberg chain built through ``OpSum`` (bond 128, 5 sweeps, float64;
+   Heisenberg chain built through ``OpSum`` (bond 128, 3 sweeps, float64;
    the time of each sweep and its split between local solves, SVD splits and
    environment updates; the energy against ITensors.jl's published value),
    its ground state served on 4096 sampled configurations through
@@ -90,10 +90,26 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    frozen-core water (RHF against the published value, DMRG against FCI);
    ``umps_mpo_evolve`` of the infinite TFIM, card against CPU.
 
+11. 2D and finite temperature (``TWO_D``): CTMRG of the Ising model at
+   beta_c (chi 128) against Onsager, card against CPU, and its magnetization
+   at beta 0.5 (chi 64) against Yang; TRG (chi 64) and HOTRG (chi 32) against
+   Onsager, the HOTRG internal energy by autodiff against Onsager's; the
+   critical TFIM MERA (chi 4, sweeps cut to the budget) against -4/pi and the
+   sigma dimension 1/8 and held to the JAX package's readings after the same
+   sweeps, then ``expand_mera`` to chi 6; ``thermal_itebd`` (bond 64, beta 2)
+   card against CPU and against the exact integrals, ``thermal_wii``; the
+   thermal IBC correlator of the XX chain against the exact Wick oracle and
+   the T = 0 one on a VUMPS Heisenberg ground state, card against CPU; pure
+   dephasing against its closed form and ``ness_infinite`` card against CPU;
+   the square-root-Boltzmann iPEPS against Yang and ``ipeps_ground_state``
+   (D 3, chi 36) card against CPU; ``cp_als`` and ``tucker_hooi`` on 256^3
+   tensors against the noise floor, card against CPU.  No path may launch a
+   hand kernel.
+
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  ``--physics-only``
-(``--infinite-only``) runs phases 1, 2 and 9 (10) alone and prints
-neither.  Without a GPU, or without the package beside this file, it exits
+(``--infinite-only``, ``--2d-only``) runs phases 1, 2 and 9 (10, 11) alone
+and prints neither.  Without a GPU, or without the package beside this file, it exits
 nonzero and prints no result.
 """
 
@@ -171,23 +187,24 @@ GRAPH = {
 }
 # Finite-chain paths (phase 8).  SPIN1: the spin-1 Heisenberg chain of
 # ITensors.jl's documented DMRG example (N 100, 5 sweeps; its bond schedule
-# rises to 200, cut here to one cap of 128, kernel #1's reach), whose ground
-# energy the example prints as about -138.94.  TFIM: the critical open chain,
-# held against the free-fermion energy.  ENSEMBLE: 64 TFIM chains over a
-# field scan in one batched search.  QUENCH: single-site TDVP from the TFIM
-# ground state (h 1 -> 0.5) in complex128, 6 steps: at 10 (64.2 s), with
-# LINDBLAD at 10 too, the whole script took 767.1 s on an H100, over its
-# 750 s budget (PERF.md §6).  ITEBD: the infinite critical
+# rises to 200, cut here to one cap of 128, kernel #1's reach, and to 3
+# sweeps to make room for phase 11), whose ground energy the example prints
+# as about -138.94.  TFIM: the critical open chain, held against the
+# free-fermion energy.  ENSEMBLE: 64 TFIM chains over a field scan in one
+# batched search (3 sweeps; 4 until phase 11).  QUENCH: single-site TDVP
+# from the TFIM ground state (h 1 -> 0.5) in complex128, 3 steps (6 until
+# phase 11; at 10, 64.2 s, with LINDBLAD at 10 too, the whole script took
+# 767.1 s on an H100, over its 750 s budget, PERF.md §6).  ITEBD: the infinite critical
 # chain against -4/pi to the JAX test's 5e-4.  OPSUM: an OpSum-built
 # Heisenberg MPO against heisenberg_mpo through rayleigh.
 CHAINS = {
-    "spin1": {"n_sites": 100, "bond": 128, "sweeps": 5, "serve_batch": 4096,
+    "spin1": {"n_sites": 100, "bond": 128, "sweeps": 3, "serve_batch": 4096,
               "published": -138.94, "published_tol": 0.01, "seed": 3},
     "tfim": {"n_sites": 100, "h": 1.0, "bond": 64, "sweeps": 5, "rtol": 1e-8,
              "seed": 4},
     "ensemble": {"n_members": 64, "h": (0.5, 1.5), "n_sites": 32, "bond": 32,
-                 "sweeps": 4, "rtol": 1e-7, "seed": 5},
-    "quench": {"h": 0.5, "dt": 0.05, "steps": 6, "drift_tol": 1e-7,
+                 "sweeps": 3, "rtol": 1e-7, "seed": 5},
+    "quench": {"h": 0.5, "dt": 0.05, "steps": 3, "drift_tol": 1e-7,
                "norm_tol": 1e-10},
     "itebd": {"bond": 32, "tol": 5e-4},
     "opsum": {"n_sites": 100, "bond": 16, "rtol": 1e-10, "seed": 6},
@@ -203,8 +220,8 @@ CHAINS = {
 # closed form of its Riemann sum, and the QFT of its 16-bit samples against
 # numpy.fft.  DENSE: the 20-bit quantics MPS evaluated on every grid point
 # through #1.  LINDBLAD: the dephased XXZ chain by W^II, card against CPU,
-# 6 steps (not 20; at 10 the card and CPU runs took 79.7 s, and the script
-# went over its budget, see QUENCH above).  The trace
+# 4 steps (not 20; at 10 the card and CPU runs took 79.7 s, and the script
+# went over its budget, see QUENCH above; 6 until phase 11).  The trace
 # is an overlap with vec(I), whose norm is 2^(n/2): a 2-norm rounding of
 # rho of relative size e moves it by up to e 2^(n/2) ||rho|| (about 2e-11 a
 # step at 20 sites on the card, growing with the bond, while the discarded
@@ -212,7 +229,8 @@ CHAINS = {
 # number, as the kernels' agreement is.
 # CV: the batched correction-vector grid on a 32-site Heisenberg ground
 # state, card against CPU at every 8th frequency (each frequency is an
-# independent member of the batch; the CPU takes 77 s for all 32 at CG 16).
+# independent member of the batch; the CPU takes 77 s for all 32 at CG 16;
+# CG 32 per solve, 64 until phase 11).
 # At eta 0.1 the local systems (K^2 + eta^2) have condition numbers near
 # 1e5, the fixed-depth CG does not converge, and the truncated ALS result
 # is determined only to about 1e-7..1e-5 in float64 (a 1e-15 relative
@@ -220,7 +238,8 @@ CHAINS = {
 # must agree with the CPU to 1e-8 or to ten times that spread, measured in
 # the same run.  MCWF: a trajectory ensemble of the damped TFIM, card
 # against CPU on the same host draws; 32 trajectories, not 64 (64 took 55 s
-# on the card and 31 s on the CPU).  The bond cap 16 binds (bond 64 moves a
+# on the card and 31 s on the CPU), 6 steps of 0.1 (10 until phase 11, when
+# the path took 58.8 s).  The bond cap 16 binds (bond 64 moves a
 # trajectory's record by 3e-5), so the truncated result is determined only
 # as far as near-degenerate singular values at the cut allow: the card must
 # agree with the CPU to 1e-10 or to ten times the CPU's own spread under a
@@ -235,12 +254,12 @@ PHYSICS = {
     "tci": {"n_bits": 40, "freq": 50.0, "max_bond": 16, "tol": 1e-10, "rtol": 1e-9,
             "qft_bits": 16, "qft_tol": 1e-10},
     "dense": {"n_bits": 20, "freq": 50.0, "tol": 1e-5},
-    "lindblad": {"n_sites": 20, "steps": 6, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
+    "lindblad": {"n_sites": 20, "steps": 4, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
                  "max_bond": 64, "trace_tol": 1e-10, "tol": 1e-10},
     "cv": {"n_sites": 32, "bond": 32, "dmrg_sweeps": 4, "n_omegas": 32,
-           "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 2, "cg_iters": 64,
+           "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 2, "cg_iters": 32,
            "cpu_every": 8, "tol": 1e-8, "seed": 22},
-    "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 10, "t": 1.0, "h": 1.0,
+    "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 6, "t": 0.6, "h": 1.0,
              "gamma": 0.2, "max_bond": 16, "tol": 1e-10, "seed": 23},
 }
 # The same paths at a size the CPU rehearses in seconds
@@ -268,7 +287,8 @@ PHYSICS_TINY = {
 # the last one's AL, zero-padded, plus noise), the bond-128 energy per site
 # against White & Huse's -1.401484038971 (PRB 48, 3844, 1993); the gap at
 # k = pi by excitation_minimum_cell on the largest grown ground whose solve
-# fits its budget (not under bond 32), against Haegeman et al.'s 0.41047925
+# fits its budget (20 s, 40 until phase 11; not under bond 32), against
+# Haegeman et al.'s 0.41047925
 # (PRB 85, 100408, 2012); the dense excitation_spectrum on a bond-12 ground,
 # card against CPU over all bands.  HUBBARD: hubbard_vumps (u 4, t 1, half
 # filling, the d = 16 folded cell) with bonds grown to 128, the largest
@@ -297,7 +317,7 @@ INFINITE = {
     "haldane": {"schedule": (32, 64, 128), "iters": 60, "lanczos_iters": 40,
                 "noise": 1e-3, "e_ref": -1.401484038971, "e_tol": 1e-8,
                 "gap_ref": 0.41047925, "gap_tol": 1e-4, "gap_min_bond": 32,
-                "gap_iters": 60, "gap_budget_s": 40.0, "dense_bond": 12,
+                "gap_iters": 60, "gap_budget_s": 20.0, "dense_bond": 12,
                 "dense_tol": 1e-10, "seed": 21},
     "hubbard": {"u": 4.0, "t": 1.0, "bond_dims": (16, 32, 64, 128), "iters": 40,
                 "lanczos_iters": 40, "budget_s": 40.0, "min_bond": 32, "tol": 1e-4,
@@ -323,6 +343,80 @@ INFINITE_TINY = {
                 "pen_tol": 1e-3, "u1_ref": -4.57759881903517, "serve_batch": 64},
     "water": INFINITE["water"],
     "evolve": {**INFINITE["evolve"], "bond": 4, "steps": 2},
+}
+# 2D and finite temperature (phase 11).  The widths are those users of these
+# methods run on one card; every path is held to a closed form and, where a
+# float64 CPU run is affordable, the card to the port on the CPU.
+# CTMRG: the square-lattice Ising model exactly at beta_c, chi 128, 300
+# iterations, against Onsager's ln z_c = ln(2)/2 + 2G/pi (G Catalan's
+# constant); at beta 0.5 from the fixed-spin boundary (ising_boundary), chi
+# 64, the magnetization against Yang's (1 - sinh(2 beta)^-4)^(1/8).  TRG: beta
+# 0.4, chi 64 (every split a full SVD of a 4096 x 4096 matrix), 12 steps (a
+# 4096-site block: the free energy is converged in the steps to 2e-8 at chi
+# 16 on the CPU, and each step costs two 2 s SVDs on the card), against
+# Onsager's integral.  HOTRG: beta_c, chi 32 (the merge's largest
+# intermediates chi^5 = 3.4e7 elements, 268 MB in float64; chi 48 would
+# need 2.0 GB each and chi^7 = 5.9e11 operations a merge), against the
+# closed form; ising_internal_energy_ad at beta 0.4, chi 24, against
+# Onsager's internal energy.  MERA: the critical TFIM at chi 4 from a numpy
+# start (mera_start), swept as far as the budget allows, against -4/pi and
+# the Ising sigma dimension 1/8, and held to the JAX package's energy and
+# sigma dimension after the same sweeps from the same start (e_ref, dim_ref:
+# scripts/mera_reference.py SWEEPS 4 0); then expand_mera to chi 6, the
+# same state to 1e-8, and a few sweeps there.  THERMAL: thermal_itebd of the
+# critical TFIM at bond 64, beta 2, dbeta 0.005, energy and ln Z against
+# tfim_exact_thermal (the energy is second order in dbeta; ln Z from the
+# norm accumulation carries a first-order bias near 0.12 dbeta); thermal_wii
+# at bond 64 against the same integrals.  IBC: ibc_thermal_correlator of the
+# XX chain at bond 64 against the exact infinite free-fermion Wick oracle
+# (xx_wick below); ibc_dynamic_correlator on a VUMPS ground state of the
+# spin-1/2 Heisenberg chain at bond 64, card against CPU.  LINDBLAD: pure
+# dephasing against exp(-2 gamma t); ness_infinite of the dephased TFIM at
+# bond 32, card against CPU.  IPEPS: the square-root-Boltzmann Ising iPEPS
+# magnetization against Yang at chi 64; ipeps_ground_state of the 2D TFIM at
+# D 3 (q 9), chi 36, with the default 500-step schedule, card against CPU.
+# FACTORIZE: cp_als (rank 16, 100 steps) and tucker_hooi (ranks 32) on 256^3
+# tensors of that rank plus noise, against the noise floor, card against CPU.
+TWO_D = {
+    "ctmrg": {"chi": 128, "iters": 300, "tol": 1e-6, "mag_beta": 0.5, "mag_chi": 64,
+              "mag_iters": 200, "mag_tol": 1e-9},
+    "trg": {"beta": 0.4, "chi": 64, "steps": 12, "tol": 1e-7},
+    "hotrg": {"chi": 32, "steps": 30, "tol": 1e-7, "ad_beta": 0.4, "ad_chi": 24,
+              "ad_steps": 24, "ad_tol": 1e-4},
+    "mera": {"chi": 4, "sweeps": 1000, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
+             "e_ref": -1.24106356357083, "dim_ref": 1.004104323187203, "ref_tol": 1e-8,
+             "seed": 0},
+    "thermal": {"beta": 2.0, "bond": 64, "dbeta": 0.005, "e_tol": 1e-5, "lz_tol": 1e-3,
+                "wii_dbeta": 0.02, "wii_tol": 3e-4},
+    "ibc": {"beta": 1.0, "bond": 64, "dbeta": 0.02, "n_sites": 8, "site": 3,
+            "dt": 0.05, "steps": 6, "tol": 2e-4, "heis_iters": 40, "heis_tol": 1e-4,
+            "heis_sites": 8, "heis_steps": 2, "seed": 31},
+    "lindblad": {"gamma": 0.35, "t": 0.5, "h": 1.2, "rate": 0.7, "bond": 32,
+                 "t_chunk": 1.0, "max_chunks": 2, "steps_per_unit": 6},
+    "ipeps": {"beta": 0.5, "chi": 64, "iters": 200, "mag_tol": 1e-8, "h": 3.5,
+              "bond": 3, "gs_chi": 36, "gs_iters": 200},
+    "factorize": {"dim": 256, "rank": 16, "steps": 100, "noise": 1e-3, "cpu_steps": 3,
+                  "tucker": 32, "tucker_steps": 10, "seed": 32},
+}
+# The same paths at a size the CPU rehearses in seconds
+# (tests/test_torch_ipeps.py); the closed forms are looser there.
+TWO_D_TINY = {
+    "ctmrg": {**TWO_D["ctmrg"], "chi": 8, "iters": 30, "tol": 2e-2, "mag_chi": 8,
+              "mag_iters": 40, "mag_tol": 1e-6},
+    "trg": {**TWO_D["trg"], "chi": 6, "steps": 12, "tol": 1e-3},
+    "hotrg": {**TWO_D["hotrg"], "chi": 6, "steps": 12, "tol": 2e-2, "ad_chi": 6,
+              "ad_steps": 10, "ad_tol": 5e-2},
+    "mera": {**TWO_D["mera"], "chi": 3, "sweeps": 4, "cpu_sweeps": 2, "big_chi": 4,
+             "big_sweeps": 1},
+    "thermal": {**TWO_D["thermal"], "beta": 0.4, "bond": 4, "dbeta": 0.05, "e_tol": 1e-2,
+                "lz_tol": 1e-2, "wii_dbeta": 0.1, "wii_tol": 2e-2},
+    "ibc": {**TWO_D["ibc"], "bond": 4, "dbeta": 0.1, "n_sites": 4, "site": 1, "steps": 1,
+            "tol": 5e-2, "heis_iters": 4, "heis_tol": 2.0, "heis_sites": 4, "heis_steps": 1},
+    "lindblad": {**TWO_D["lindblad"], "bond": 4, "max_chunks": 1, "steps_per_unit": 2},
+    "ipeps": {**TWO_D["ipeps"], "chi": 4, "iters": 20, "mag_tol": 1e-2, "bond": 2,
+              "gs_chi": 4, "gs_iters": 10},
+    "factorize": {**TWO_D["factorize"], "dim": 12, "rank": 3, "steps": 6, "tucker": 3,
+                  "tucker_steps": 2},
 }
 TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
 TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
@@ -2488,6 +2582,485 @@ def umps_evolve_path(device, smi, cfg):
         raise AssertionError("uniform W^II evolution: card and CPU disagree")
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+CATALAN = 0.9159655941772190
+BETA_C = 0.5 * math.log(1.0 + math.sqrt(2.0))
+
+
+def onsager_log_z(beta, n=3000):
+    """Onsager's ln z per site of the square-lattice Ising model (the double
+    integral by the trapezoid rule; at beta_c the closed form ln(2)/2 + 2G/pi,
+    where the integrand touches log 0)."""
+    import numpy as np
+
+    if abs(beta - BETA_C) < 1e-12:
+        return 0.5 * math.log(2.0) + 2.0 * CATALAN / math.pi
+    th = np.linspace(0.0, np.pi, n)
+    t1, t2 = np.meshgrid(th, th)
+    f = np.log(np.cosh(2 * beta) ** 2 - np.sinh(2 * beta) * (np.cos(t1) + np.cos(t2)))
+    return math.log(2.0) + float(np.trapezoid(np.trapezoid(f, th, axis=1), th)) / (
+        2.0 * math.pi ** 2)
+
+
+def yang_magnetization(beta):
+    return (1.0 - math.sinh(2.0 * beta) ** -4) ** 0.125
+
+
+def onsager_energy(beta):
+    """Onsager's internal energy per site u = -coth(2b) [1 + (2 tanh^2(2b) - 1)
+    (2/pi) K(k1)], k1 = 2 sinh(2b) / cosh^2(2b) (K by the AGM)."""
+    t2 = math.tanh(2.0 * beta)
+    k1 = 2.0 * math.sinh(2.0 * beta) / math.cosh(2.0 * beta) ** 2
+    a, b = 1.0, math.sqrt(1.0 - k1 * k1)
+    for _ in range(60):
+        a, b = 0.5 * (a + b), math.sqrt(a * b)
+    return -(1.0 / t2) * (1.0 + (2.0 * t2 * t2 - 1.0) * (2.0 / math.pi) * (math.pi / (2.0 * a)))
+
+
+def xx_wick(beta, n_sites, site, dt, steps, n_k=4001):
+    """<Z_j(t) Z_site>_beta of the INFINITE XX chain (h = (XX + YY)/2): Z = 2n - 1
+    is string-free under Jordan-Wigner, so Wick's theorem gives 4 A B with A =
+    int f e^{i eps t - i k r} dk/2pi, B = int (1 - f) e^{-i eps t + i k r}
+    dk/2pi, eps_k = 2 cos k, f the Fermi function (numpy)."""
+    import numpy as np
+
+    ks = np.linspace(-np.pi, np.pi, n_k)
+    eps = 2.0 * np.cos(ks)
+    f = 1.0 / (1.0 + np.exp(beta * eps))
+    out = np.zeros((n_sites, steps + 1), complex)
+    for k in range(steps + 1):
+        t = k * dt
+        for j in range(n_sites):
+            r = j - site
+            a = np.trapezoid(f * np.exp(1j * eps * t - 1j * ks * r), ks) / (2 * np.pi)
+            b = np.trapezoid((1 - f) * np.exp(-1j * eps * t + 1j * ks * r), ks) / (2 * np.pi)
+            out[j, k] = 4.0 * a * b
+    return out
+
+
+def mera_start(chi, d, seed):
+    """A MERA start as ``mera_ground_state`` draws one (identity
+    disentanglers, random isometries), from a numpy generator, so that the
+    card, the CPU and the JAX package (scripts/mera_reference.py) start
+    alike."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    chi1 = min(d ** 3, chi)
+
+    def isometry(out_dim, in_dim):
+        q, _ = np.linalg.qr(rng.normal(size=(in_dim, out_dim)))
+        return q.T
+
+    def eye4(m):
+        return np.eye(m * m).reshape(m, m, m, m)
+
+    return {"u": [eye4(d), eye4(chi1)],
+            "w": [isometry(chi1, d ** 3).reshape(chi1, d, d, d),
+                  isometry(chi, chi1 ** 3).reshape(chi, chi1, chi1, chi1)],
+            "u_s": eye4(chi),
+            "w_s": isometry(chi, chi ** 3).reshape(chi, chi, chi, chi)}
+
+
+def two_d_paths(device, smi, sizes=TWO_D):
+    """Phase 11: the 2D classical RG family, MERA, single-site iPEPS, tensor
+    factorizations and the finite-temperature and infinite-boundary layer
+    through the user entry points; returns ``{path: (counts, seconds)}``.
+    Each path runs with every launch count zeroed just before it and read
+    just after: none of them reaches a hand kernel, so none may launch one."""
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+        return out
+
+    drive("ctmrg", lambda: ctmrg_path(device, smi, sizes["ctmrg"]))
+    drive("trg", lambda: trg_path(device, smi, sizes["trg"]))
+    drive("hotrg", lambda: hotrg_path(device, smi, sizes["hotrg"]))
+    drive("mera", lambda: mera_path(device, smi, sizes["mera"]))
+    drive("thermal", lambda: thermal_path(device, smi, sizes["thermal"]))
+    drive("ibc_thermal", lambda: ibc_thermal_path(device, smi, sizes["ibc"]))
+    drive("ibc_dynamic", lambda: ibc_dynamic_path(device, smi, sizes["ibc"]))
+    drive("lindblad_infinite", lambda: lindblad_infinite_path(device, smi,
+                                                              sizes["lindblad"]))
+    drive("ipeps", lambda: ipeps_path(device, smi, sizes["ipeps"]))
+    drive("factorize", lambda: factorize_path(device, smi, sizes["factorize"]))
+    for path, (counts, _) in runs.items():
+        if any(counts.values()):
+            raise AssertionError(f"path {path}: hand-kernel launches {counts}")
+    return runs
+
+
+def _check(what, err, tol):
+    if not err <= tol:
+        raise AssertionError(f"{what}: {err:.3e} over its tolerance {tol:.1e}")
+
+
+def _on(devices, fn):
+    """``fn(dev)`` on each device, each call timed on the host clock ending
+    in a synchronize; returns ``({device type: result}, {device type:
+    seconds})``."""
+    out, secs = {}, {}
+    for dev in devices:
+        out[dev.type], secs[dev.type] = _timed(lambda: fn(dev), dev)
+    return out, secs
+
+
+def ctmrg_path(device, smi, cfg):
+    """CTMRG of the Ising model at beta_c (card and CPU against Onsager's
+    closed form) and the symmetry-broken magnetization at beta 0.5."""
+    from contractn_tpu_torch.models import (ctmrg_environment, free_energy_per_site,
+                                            ising_tensor)
+    from contractn_tpu_torch.models.ctmrg import expectation, ising_boundary
+
+    exact = onsager_log_z(BETA_C)
+    vals, secs = _on((device, torch.device("cpu")), lambda dev: free_energy_per_site(
+        ising_tensor(BETA_C, device=dev), cfg["chi"], cfg["iters"]))
+    err = abs(vals[device.type] - exact)
+    log(f"  CTMRG Ising at beta_c, chi {cfg['chi']}, {cfg['iters']} iterations: "
+        f"ln z {vals[device.type]!r}, Onsager {exact!r}, |diff| {err:.3e} (tol "
+        f"{cfg['tol']}); card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); "
+        f"|card - CPU| {abs(vals[device.type] - vals['cpu']):.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("CTMRG free energy against Onsager", err, cfg["tol"])
+    _check("CTMRG free energy, card against CPU",
+           abs(vals[device.type] - vals["cpu"]), TOL_CARD_VS_CPU)
+    b = cfg["mag_beta"]
+    m, secs = _timed(lambda: expectation(
+        ising_tensor(b, device=device), ising_tensor(b, field_op=[1.0, -1.0], device=device),
+        cfg["mag_chi"], iters=cfg["mag_iters"], boundary=ising_boundary(b, device=device)),
+        device)
+    err = abs(m - yang_magnetization(b))
+    log(f"  CTMRG magnetization at beta {b}, chi {cfg['mag_chi']}: {m!r}, Yang "
+        f"{yang_magnetization(b)!r}, |diff| {err:.3e} (tol {cfg['mag_tol']}); {secs:.2f} s")
+    _check("CTMRG magnetization against Yang", err, cfg["mag_tol"])
+    c, t = ctmrg_environment(ising_tensor(b, device=device), cfg["mag_chi"], iters=1)
+    if c.device != device or t.shape != (cfg["mag_chi"], 2, cfg["mag_chi"]):
+        raise AssertionError("CTMRG environment off the card or misshapen")
+
+
+def trg_path(device, smi, cfg):
+    """Levin-Nave TRG at beta 0.4 against Onsager's integral."""
+    from contractn_tpu_torch.models import ising_tensor, trg_log_z
+
+    b = cfg["beta"]
+    got, secs = _timed(lambda: trg_log_z(ising_tensor(b, device=device), cfg["chi"],
+                                         steps=cfg["steps"]), device)
+    exact = onsager_log_z(b)
+    log(f"  TRG Ising at beta {b}, chi {cfg['chi']}, {cfg['steps']} steps: ln z {got!r}, "
+        f"Onsager {exact!r}, |diff| {abs(got - exact):.3e} (tol {cfg['tol']}); "
+        f"{secs:.2f} s, {secs / cfg['steps']:.3f} s a step ({smi})")
+    _check("TRG free energy against Onsager", abs(got - exact), cfg["tol"])
+
+
+def hotrg_path(device, smi, cfg):
+    """HOTRG at beta_c against the closed form, and the internal energy by
+    autodiff through the flow against Onsager's."""
+    from contractn_tpu_torch.models import hotrg_log_z, ising_internal_energy_ad, ising_tensor
+
+    exact = onsager_log_z(BETA_C)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    got, secs = _timed(lambda: hotrg_log_z(ising_tensor(BETA_C, device=device), cfg["chi"],
+                                           steps=cfg["steps"]), device)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
+    log(f"  HOTRG Ising at beta_c, chi {cfg['chi']}, {cfg['steps']} steps: ln z {got!r}, "
+        f"|diff| from the closed form {abs(got - exact):.3e} (tol {cfg['tol']}); {secs:.2f} s, "
+        f"peak device memory {peak:.2f} GiB ({smi})")
+    _check("HOTRG free energy against Onsager", abs(got - exact), cfg["tol"])
+    b = cfg["ad_beta"]
+    u, secs = _timed(lambda: ising_internal_energy_ad(b, cfg["ad_chi"], cfg["ad_steps"]),
+                     device)
+    log(f"  HOTRG internal energy by autodiff at beta {b}, chi {cfg['ad_chi']}, "
+        f"{cfg['ad_steps']} steps: {u!r}, Onsager {onsager_energy(b)!r}, |diff| "
+        f"{abs(u - onsager_energy(b)):.3e} (tol {cfg['ad_tol']}); {secs:.2f} s")
+    _check("HOTRG autodiff energy against Onsager", abs(u - onsager_energy(b)), cfg["ad_tol"])
+
+
+def mera_path(device, smi, cfg):
+    """The ternary MERA of the critical TFIM: card against CPU over the first
+    sweeps, then the full run against -4/pi, the sigma dimension 1/8 and the
+    JAX package's readings after the same sweeps; expand_mera to a larger
+    bond, the same state, and a few sweeps there."""
+    import numpy as np
+
+    from contractn_tpu_torch.convert import state_from_numpy
+    from contractn_tpu_torch.models import (expand_mera, mera_energy, mera_ground_state,
+                                            scaling_dimensions)
+    from contractn_tpu_torch.models.itebd import tfim_h2
+
+    exact = -4.0 / math.pi
+    start = mera_start(cfg["chi"], 2, cfg["seed"])
+    h2 = tfim_h2()
+
+    def run(dev, sweeps, init=None):
+        return mera_ground_state(torch.from_numpy(h2).to(dev), cfg["chi"], sweeps=sweeps,
+                                 init=init or state_from_numpy(start, device=dev))
+
+    short, secs = _on((device, torch.device("cpu")), lambda dev: run(dev, cfg["cpu_sweeps"]))
+    diff = abs(short[device.type][1] - short["cpu"][1])
+    log(f"  MERA chi {cfg['chi']}, {cfg['cpu_sweeps']} sweeps: card {secs[device.type]:.2f} s, "
+        f"CPU {secs['cpu']:.2f} s; |card - CPU| {diff:.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("MERA energy, card against CPU", diff, TOL_CARD_VS_CPU)
+    (params, e), secs = _timed(lambda: run(device, cfg["sweeps"]), device)
+    dim = float(scaling_dimensions(params, n=2)[1])
+    log(f"  MERA chi {cfg['chi']}, {cfg['sweeps']} sweeps (the JAX test sweeps 12,000; cut to "
+        f"the budget): {secs:.2f} s, {1e3 * secs / cfg['sweeps']:.2f} ms a sweep ({smi}); "
+        f"energy {e!r}, above -4/pi by {e - exact:.3e} (the JAX test's tol 3e-4); sigma "
+        f"dimension {dim!r}, from 1/8 by {abs(dim - 0.125):.3e} (the JAX test's tol 0.02); "
+        f"the JAX package after the same sweeps: {cfg['e_ref']!r}, {cfg['dim_ref']!r}")
+    if e < exact - 1e-9:
+        raise AssertionError("MERA energy below the exact -4/pi: not variational")
+    _check("MERA energy against the JAX package's", abs(e - cfg["e_ref"]), cfg["ref_tol"])
+    _check("MERA sigma dimension against the JAX package's", abs(dim - cfg["dim_ref"]),
+           cfg["ref_tol"] ** 0.5)
+    big = expand_mera(params, cfg["big_chi"], generator=_gen(device, cfg["seed"]))
+    h2t = torch.from_numpy(h2).to(device)
+    e_small, e_big = mera_energy(params, h2t, rho_iters=400), mera_energy(big, h2t,
+                                                                          rho_iters=400)
+    (big, e6), secs = _timed(lambda: mera_ground_state(h2t, cfg["big_chi"],
+                                                       sweeps=cfg["big_sweeps"], init=big),
+                             device)
+    log(f"  expand_mera to chi {cfg['big_chi']}: energy {e_big!r} vs {e_small!r} at chi "
+        f"{cfg['chi']} (|diff| {abs(e_big - e_small):.3e}, tol 1e-8); {cfg['big_sweeps']} "
+        f"sweeps at chi {cfg['big_chi']} in {secs:.2f} s, {1e3 * secs / cfg['big_sweeps']:.2f} "
+        f"ms a sweep: energy {e6!r}")
+    _check("expand_mera: the embedded state's energy", abs(e_big - e_small), 1e-8)
+    if e6 < exact - 1e-9 or not np.isfinite(e6):
+        raise AssertionError("MERA at the larger bond: energy not variational")
+
+
+def thermal_path(device, smi, cfg):
+    """Purification iTEBD of the critical TFIM at finite temperature (card
+    against CPU, energy and ln Z against the exact integrals) and the W^II
+    purification of the same chain."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (tfim_exact_thermal, tfim_mpo,
+                                            thermal_energy_density, thermal_itebd,
+                                            thermal_wii, thermal_wii_correlate,
+                                            thermal_wii_expectation)
+    from contractn_tpu_torch.models.itebd import tfim_h2
+
+    lz, e_exact = tfim_exact_thermal(cfg["beta"])
+    h2 = tfim_h2()
+    vals, secs = _on((device, torch.device("cpu")), lambda dev: (lambda st: (
+        thermal_energy_density(st, h2), st["log_z"]))(thermal_itebd(
+            torch.from_numpy(h2).to(dev), cfg["beta"], cfg["bond"], dbeta=cfg["dbeta"])))
+    (e, lnz), (e_cpu, lnz_cpu) = vals[device.type], vals["cpu"]
+    log(f"  thermal_itebd TFIM h 1, beta {cfg['beta']}, bond {cfg['bond']}, dbeta "
+        f"{cfg['dbeta']}: energy {e!r} (exact {e_exact!r}, |diff| {abs(e - e_exact):.3e}, tol "
+        f"{cfg['e_tol']}), ln Z {lnz!r} (exact {lz!r}, |diff| {abs(lnz - lz):.3e}, tol "
+        f"{cfg['lz_tol']}); card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); "
+        f"|card - CPU| {max(abs(e - e_cpu), abs(lnz - lnz_cpu)):.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("thermal energy against the exact integral", abs(e - e_exact), cfg["e_tol"])
+    _check("thermal ln Z against the exact integral", abs(lnz - lz), cfg["lz_tol"])
+    _check("thermal_itebd, card against CPU", max(abs(e - e_cpu), abs(lnz - lnz_cpu)),
+           TOL_CARD_VS_CPU)
+    hc = tfim_mpo(2, device=device).cores[0]
+    sx, sz = np.array(SX), np.array(SZ)
+    core, secs = _timed(lambda: thermal_wii(hc, cfg["beta"], cfg["bond"],
+                                            dbeta=cfg["wii_dbeta"]), device)
+    zz = np.real(thermal_wii_correlate(core, sz, sz, [1])[0])
+    ex = np.real(thermal_wii_expectation(core, sx))
+    ez = np.real(thermal_wii_expectation(core, sz))
+    e = -(zz + ez * ez) - ex
+    log(f"  thermal_wii TFIM, beta {cfg['beta']}, bond {cfg['bond']}, dbeta "
+        f"{cfg['wii_dbeta']}: energy {e!r} (|diff| from exact {abs(e - e_exact):.3e}, tol "
+        f"{cfg['wii_tol']}); {secs:.2f} s ({smi})")
+    _check("thermal_wii energy against the exact integral", abs(e - e_exact), cfg["wii_tol"])
+
+
+def ibc_thermal_path(device, smi, cfg):
+    """The finite-temperature dynamic correlator of the infinite XX chain
+    against the exact Wick oracle."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import ibc_thermal_correlator, mpo_from_bond_term, thermal_wii
+
+    sy_im = np.array([[0.0, -1.0], [1.0, 0.0]])  # i sigma_y
+    h2 = 0.5 * (np.kron(SX, SX) - np.kron(sy_im, sy_im))
+    hc = mpo_from_bond_term(h2, 2, device=device).cores[0]
+    core, secs_w = _timed(lambda: thermal_wii(hc, cfg["beta"], cfg["bond"],
+                                              dbeta=cfg["dbeta"]), device)
+    z = np.array(SZ)
+    c, secs = _timed(lambda: ibc_thermal_correlator(
+        core, hc, z, z, cfg["n_sites"], cfg["site"], cfg["dt"], cfg["steps"],
+        max_bond=cfg["bond"]), device)
+    want = xx_wick(cfg["beta"], cfg["n_sites"], cfg["site"], cfg["dt"], cfg["steps"])
+    err = float(np.abs(c - want).max())
+    log(f"  ibc_thermal_correlator XX chain, beta {cfg['beta']}, bond {cfg['bond']} "
+        f"(thermal_wii {secs_w:.2f} s), window {cfg['n_sites']}, {cfg['steps']} steps of "
+        f"{cfg['dt']}: {secs:.2f} s ({smi}); max |C - Wick| {err:.3e} (tol {cfg['tol']})")
+    _check("thermal IBC correlator against the Wick oracle", err, cfg["tol"])
+
+
+def ibc_dynamic_path(device, smi, cfg):
+    """The T = 0 dynamic correlator on a VUMPS ground state of the spin-1/2
+    Heisenberg chain, card against CPU from the same ground state."""
+    import numpy as np
+
+    from contractn_tpu_torch.convert import ground_from_numpy, ground_to_numpy
+    from contractn_tpu_torch.models import heisenberg_mpo, ibc_dynamic_correlator, vumps
+
+    mpo = heisenberg_mpo(2, device=device)
+    ground, secs_v = _timed(lambda: vumps(mpo, cfg["bond"], iters=cfg["heis_iters"],
+                                          generator=_gen(device, cfg["seed"])), device)
+    host = ground_to_numpy(ground)
+    z = np.diag([0.5, -0.5])
+    n, site = cfg["heis_sites"], cfg["heis_sites"] // 2 - 1
+    vals, secs = _on((device, torch.device("cpu")), lambda dev: ibc_dynamic_correlator(
+        ground_from_numpy(host, device=dev), mpo.cores[0].to(dev), z, z, n, site, cfg["dt"],
+        cfg["heis_steps"], max_bond=cfg["bond"]))
+    diff = float(np.abs(vals[device.type] - vals["cpu"]).max())
+    exact = 1.0 - 4.0 * math.log(2.0)  # XX + YY + ZZ in Pauli matrices: 4 (1/4 - ln 2)
+    log(f"  VUMPS Heisenberg bond {cfg['bond']}, {cfg['heis_iters']} iterations: energy "
+        f"{ground['energy']!r} (Bethe {exact!r}, |diff| {abs(ground['energy'] - exact):.3e}, "
+        f"tol {cfg['heis_tol']}), {secs_v:.2f} s; "
+        f"ibc_dynamic_correlator window {n}, {cfg['heis_steps']} steps: card "
+        f"{secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); C(site, 0) "
+        f"{float(vals['cpu'][site, 0].real)!r} (1/4); |card - CPU| {diff:.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("VUMPS Heisenberg energy against Bethe", abs(ground["energy"] - exact),
+           cfg["heis_tol"])
+    _check("IBC dynamic correlator, card against CPU", diff, TOL_CARD_VS_CPU)
+    _check("IBC correlator at t = 0: <S^z S^z> on site", abs(vals["cpu"][site, 0] - 0.25), 1e-10)
+
+
+def lindblad_infinite_path(device, smi, cfg):
+    """Uniform Lindblad evolution: pure dephasing against its closed form,
+    and the steady-state search of the dephased TFIM, card against CPU."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (lindblad_evolve_infinite, ness_infinite,
+                                            product_density, tfim_mpo, trace_expect)
+
+    sx, sz = np.array(SX), np.array(SZ)
+    plus = 0.5 * (np.eye(2) + sx)
+    g, t = cfg["gamma"], cfg["t"]
+    out = lindblad_evolve_infinite(product_density(plus, device=device), None, jumps=[sz],
+                                   rates=[g], t=t, n_steps=10, bond_dim=4)
+    err = abs(trace_expect(out, sx) - math.exp(-2 * g * t))
+    log(f"  pure dephasing: <X>(t) {trace_expect(out, sx).real!r} against exp(-2 gamma t) "
+        f"{math.exp(-2 * g * t)!r}, |diff| {err:.3e} (tol 1e-12)")
+    _check("pure dephasing against its closed form", err, 1e-12)
+    vals, secs = _on((device, torch.device("cpu")), lambda dev: ness_infinite(
+        tfim_mpo(2, h=cfg["h"], device=dev).cores[0], jumps=[sz], rates=[cfg["rate"]],
+        rho0=product_density(plus, device=dev), bond_dim=cfg["bond"], t_chunk=cfg["t_chunk"],
+        max_chunks=cfg["max_chunks"], steps_per_unit=cfg["steps_per_unit"]))
+    diff = float(np.abs(vals[device.type]["rho1"] - vals["cpu"]["rho1"]).max())
+    log(f"  ness_infinite TFIM h {cfg['h']} + dephasing {cfg['rate']}, bond {cfg['bond']}, "
+        f"{cfg['max_chunks']} chunks of {cfg['t_chunk']}: card {secs[device.type]:.2f} s, CPU "
+        f"{secs['cpu']:.2f} s ({smi}); drift {vals['cpu']['drift']:.3e} per unit time, rho1 "
+        f"toward I/2 by {np.abs(vals['cpu']['rho1'] - 0.5 * np.eye(2)).max():.3e}; "
+        f"|card - CPU| {diff:.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("ness_infinite, card against CPU", diff, TOL_CARD_VS_CPU)
+
+
+def ipeps_path(device, smi, cfg):
+    """The square-root-Boltzmann iPEPS against Yang, and the simple-update +
+    CTMRG ground state of the 2D TFIM, card against CPU."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import ipeps_expect_local, ipeps_ground_state, tfim_bond_term_2d
+
+    b = cfg["beta"]
+    bm = np.array([[math.exp(b / 2), math.exp(-b / 2)], [math.exp(-b / 2), math.exp(b / 2)]])
+    vals, vecs = np.linalg.eigh(bm)
+    w = vecs * np.sqrt(np.maximum(vals, 0.0))[None, :]
+    a = torch.from_numpy(np.einsum("su,sl,sd,sr->suldr", w, w, w, w)).to(device)
+    y = np.kron(w[0], w[0])
+    boundary = tuple(torch.from_numpy(x).to(device)
+                     for x in (np.outer(y, y), np.einsum("l,d,r->ldr", y, y, y)))
+    m, secs = _timed(lambda: float(ipeps_expect_local(a, np.array(SZ), cfg["chi"],
+                                                      iters=cfg["iters"], boundary=boundary)),
+                     device)
+    err = abs(m - yang_magnetization(b))
+    log(f"  sqrt-Boltzmann iPEPS at beta {b}, chi {cfg['chi']}: <Z> {m!r}, Yang "
+        f"{yang_magnetization(b)!r}, |diff| {err:.3e} (tol {cfg['mag_tol']}); {secs:.2f} s")
+    _check("iPEPS magnetization against Yang", err, cfg["mag_tol"])
+    res, secs = _on((device, torch.device("cpu")), lambda dev: (lambda a_e: (
+        float(a_e[1]), float(ipeps_expect_local(a_e[0], np.array(SX), cfg["gs_chi"],
+                                                iters=cfg["gs_iters"]))))(
+        ipeps_ground_state(tfim_bond_term_2d(h=cfg["h"], device=dev), cfg["bond"],
+                           cfg["gs_chi"], iters=cfg["gs_iters"])))
+    (e, mx), (e_cpu, mx_cpu) = res[device.type], res["cpu"]
+    diff = max(abs(e - e_cpu), abs(mx - mx_cpu))
+    pt2 = -cfg["h"] - 1.0 / (2 * cfg["h"])
+    log(f"  ipeps_ground_state 2D TFIM h {cfg['h']}, D {cfg['bond']}, chi {cfg['gs_chi']}: "
+        f"energy {e!r} (second-order perturbation theory {pt2!r}), <X> {mx!r}; card "
+        f"{secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); |card - CPU| "
+        f"{diff:.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("iPEPS ground state, card against CPU", diff, TOL_CARD_VS_CPU)
+
+
+class _HostDraws:
+    """``torch.randn`` drawing from one numpy generator and moving the draw
+    to the requested device, so that the card and the CPU start from the
+    same random factors."""
+
+    def __init__(self, seed):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+
+    def __enter__(self):
+        self.real = torch.randn
+        torch.randn = lambda shape, dtype=None, device=None, generator=None: torch.from_numpy(
+            self.rng.normal(size=tuple(shape))).to(device, dtype)
+
+    def __exit__(self, *exc):
+        torch.randn = self.real
+
+
+def factorize_path(device, smi, cfg):
+    """CP-ALS and Tucker HOOI of 256^3 tensors of the fitted rank plus noise,
+    against the noise floor; card against CPU over the first sweeps."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import cp_als, tucker_hooi
+
+    n, r, rt = cfg["dim"], cfg["rank"], cfg["tucker"]
+    rng = np.random.default_rng(cfg["seed"])
+    x_cp = np.einsum("ra,rb,rc->abc", *(rng.normal(size=(r, n)) for _ in range(3)),
+                     optimize=True)
+    x_cp += cfg["noise"] * np.linalg.norm(x_cp) / n ** 1.5 * rng.normal(size=(n, n, n))
+    core = rng.normal(size=(rt, rt, rt))
+    facs = [np.linalg.qr(rng.normal(size=(n, rt)))[0] for _ in range(3)]
+    x_tk = np.einsum("abc,ia,jb,kc->ijk", core, *facs, optimize=True)
+    noise = rng.normal(size=(n, n, n))
+    x_tk += cfg["noise"] * np.linalg.norm(x_tk) / np.linalg.norm(noise) * noise
+
+    def cp(dev, steps):
+        with _HostDraws(cfg["seed"]):
+            return cp_als(torch.from_numpy(x_cp).to(dev), r, steps=steps)[1].cpu().numpy()
+
+    errs, secs = _timed(lambda: cp(device, cfg["steps"]), device)
+    cpu_errs = cp(torch.device("cpu"), cfg["cpu_steps"])
+    diff = float(np.abs(errs[:cfg["cpu_steps"]] - cpu_errs).max())
+    log(f"  cp_als rank {r} on {n}^3 (noise {cfg['noise']:.0e} of the norm), {cfg['steps']} "
+        f"sweeps: {secs:.2f} s ({smi}); relative error {float(errs[-1])!r} (noise floor "
+        f"{cfg['noise']!r}); first {cfg['cpu_steps']} sweeps |card - CPU| {diff:.3e} "
+        f"(tol {TOL_CARD_VS_CPU})")
+    _check("cp_als, card against CPU", diff, TOL_CARD_VS_CPU)
+    _check("cp_als above the noise floor", errs[-1] - cfg["noise"], 0.05 * cfg["noise"])
+    vals, secs = _on((device, torch.device("cpu")), lambda dev: tucker_hooi(
+        torch.from_numpy(x_tk).to(dev), (rt, rt, rt), steps=cfg["tucker_steps"])[2].cpu().numpy())
+    diff = float(np.abs(vals[device.type] - vals["cpu"]).max())
+    log(f"  tucker_hooi ranks {rt} on {n}^3, {cfg['tucker_steps']} sweeps: card "
+        f"{secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); relative error "
+        f"{float(vals[device.type][-1])!r} (noise floor {cfg['noise']!r}); |card - CPU| {diff:.3e} "
+        f"(tol {TOL_CARD_VS_CPU})")
+    _check("tucker_hooi, card against CPU", diff, TOL_CARD_VS_CPU)
+    _check("tucker_hooi above the noise floor", vals[device.type][-1] - cfg["noise"], 0.0)
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -2579,6 +3152,14 @@ def infinite_phase(device, smi):
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
 
+def two_d_phase(device, smi):
+    log("== 11. 2D and finite temperature")
+    t11 = time.perf_counter()
+    for path, (counts, secs) in two_d_paths(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
+
 def main():
     if not (ROOT / "contractn_tpu_torch" / "__init__.py").is_file():
         fail(f"no contractn_tpu_torch package beside {Path(__file__).name}; "
@@ -2591,7 +3172,8 @@ def main():
     log("== 2. build")
     phase_build()
     kernel_smem(device)
-    only = {"--physics-only": physics_phase, "--infinite-only": infinite_phase}
+    only = {"--physics-only": physics_phase, "--infinite-only": infinite_phase,
+            "--2d-only": two_d_phase}
     if len(sys.argv) == 2 and sys.argv[1] in only:  # phases 1, 2 and one more alone
         only[sys.argv[1]](device, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -2630,6 +3212,7 @@ def main():
         log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
     physics_phase(device, smi)
     infinite_phase(device, smi)
+    two_d_phase(device, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ them through ``numpy.asarray`` and hand them to ``mps_from_numpy`` /
 this package's objects on ``device`` (default ``cuda``; raises without a
 GPU unless ``device="cpu"``), with the same dtype and values.
 ``mps_to_numpy`` / ``mpo_to_numpy`` / ``ground_to_numpy`` go the other way, so
-parameters trained here can be held against the JAX package.  The tests use
-them so that both packages compute on identical data.
+parameters trained here can be held against the JAX package.  The states the
+2D and finite-temperature modules return (a thermal state dict, MERA
+``params``, an IBC window: dicts, lists and tuples of arrays) cross with
+``state_from_numpy`` / ``state_to_numpy``.  The tests use them so that both
+packages compute on identical data.
 """
 
 import numpy as np
@@ -105,3 +108,34 @@ def ground_to_numpy(ground):
         if key in ground:
             out[key] = _host(ground[key])
     return out
+
+
+def state_from_numpy(tree, device=None):
+    """A state of nested dicts, lists and tuples with every array leaf (numpy
+    or any array ``numpy.asarray`` reads, e.g. the JAX package's) as this
+    package's tensor on ``device``; other leaves (floats, ints, strings) are
+    kept as they are."""
+    device = resolve_device(device)
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(put(v) for v in x)
+        if hasattr(x, "shape") and hasattr(x, "dtype"):
+            return as_tensor(np.asarray(x), device)
+        return x
+
+    return put(tree)
+
+
+def state_to_numpy(tree):
+    """The inverse of :func:`state_from_numpy`: every tensor leaf of a
+    nested dict/list/tuple state as a host numpy array."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return _host((tree,))[0]
+    return tree

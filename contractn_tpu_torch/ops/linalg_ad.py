@@ -94,7 +94,7 @@ def _adjoint(tangent, shape, dtype, device, cotangents):
 class _EighSafe(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m, eps):
-        vals, vecs = torch.linalg.eigh(m)
+        vals, vecs = dense_eigh(m)
         ctx.save_for_backward(vals, vecs)
         ctx.eps = eps
         return vals, vecs
@@ -128,8 +128,9 @@ class _SvdSafe(torch.autograd.Function):
 def eigh_safe(m, eps=_EPS):
     """``(vals, vecs) = eigh(m)`` with a degeneracy-broadened backward.
 
-    The forward is exactly ``torch.linalg.eigh``; only the reverse rule
-    differs (Lorentzian-broadened eigenvalue gaps).  Real-symmetric or
+    The forward is ``torch.linalg.eigh`` (through :func:`dense_eigh`, so a
+    CPU matrix MKL's driver cannot diagonalize goes to numpy's LAPACK); only
+    the reverse rule differs (Lorentzian-broadened eigenvalue gaps).  Real-symmetric or
     complex-Hermitian ``(n, n)`` input.  Returns a plain tuple.
     """
     return _EighSafe.apply(m, eps)

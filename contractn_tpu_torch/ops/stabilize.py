@@ -63,6 +63,30 @@ def peinsum(subscripts, *operands):
     return torch.einsum(subscripts, *(op.to(dtype) for op in operands))
 
 
+def path_einsum(subscripts, *operands):
+    """:func:`peinsum` of three or more operands along an optimized pairwise
+    path.
+
+    ``torch.einsum`` picks a contraction order only where opt_einsum is
+    installed and otherwise contracts from the left, which for the ring
+    diagrams of the 2D and MERA modules forms outer products many times the
+    size of the result.  This takes the path from the package's own port of
+    opt_einsum's ``"auto"`` strategy (:func:`~..compiler.paths.find_steps`,
+    cached per signature), so the order is the same wherever it runs.
+    """
+    if len(operands) <= 2:
+        return peinsum(subscripts, *operands)
+    from ..compiler.paths import find_steps
+
+    lhs, out = subscripts.replace(" ", "").split("->")
+    steps = find_steps(tuple(lhs.split(",")), out,
+                       tuple(tuple(op.shape) for op in operands), "auto", None)
+    ops = list(operands)
+    for pos, eq in steps:
+        ops.append(peinsum(eq, *[ops.pop(i) for i in pos]))
+    return ops[0]
+
+
 def stabilize(tensor, log_scale):
     """Move the scale of ``tensor`` into ``log_scale``; mean|out| becomes 1.
 

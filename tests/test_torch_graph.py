@@ -165,7 +165,7 @@ def test_scans_cover_every_ported_module():
                    "models/tdvp.py", "models/dmrgx.py", "models/dmrg3s.py",
                    "models/itebd.py", "models/circuits.py", "models/linsolve.py",
                    "models/chebyshev.py", "models/excitations.py",
-                   *(f"models/{m}.py" for m in SLICE7 + SLICE8)):
+                   *(f"models/{m}.py" for m in SLICE7 + SLICE8 + SLICE9)):
         assert module in scanned, module
     assert all(p.is_file() for p in _port_files())
 
@@ -177,6 +177,9 @@ SLICE7 = ("fermions", "fermions2d", "spin2d", "u1", "hubbard", "quantics", "tci"
 # Queue A §8.8 and §9.0-§9.2 (``excitations`` exports nothing from models/)
 SLICE8 = ("gaussians", "chemistry", "vumps", "umps", "vumps_cell",
           "excitations_cell", "u1_vumps", "u1_vumps_cell")
+# Queue A §9.3-§9.4, §10.1 and the head of §10.2
+SLICE9 = ("thermal", "lindblad_infinite", "ibc", "ctmrg", "trg", "hotrg",
+          "factorize", "mera", "ipeps")
 
 
 def test_models_export_the_jax_names_of_each_ported_module():
@@ -186,14 +189,14 @@ def test_models_export_the_jax_names_of_each_ported_module():
         tree = ast.parse((pkg_dir / "models" / "__init__.py").read_text())
         out = {}
         for node in tree.body:
-            if isinstance(node, ast.ImportFrom) and node.module in SLICE7 + SLICE8:
+            if isinstance(node, ast.ImportFrom) and node.module in SLICE7 + SLICE8 + SLICE9:
                 out.setdefault(node.module, set()).update(
                     a.asname or a.name for a in node.names)
         return out
 
     want = exported(PORT.parent / "contractn_tpu")
     got = exported(PORT)
-    assert set(want) == set(SLICE7 + SLICE8) and got == want
+    assert set(want) == set(SLICE7 + SLICE8 + SLICE9) and got == want
     import contractn_tpu_torch.models as models
 
     for names in got.values():
