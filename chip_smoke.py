@@ -105,12 +105,28 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    (D 3, chi 36) card against CPU; ``cp_als`` and ``tucker_hooi`` on 256^3
    tensors against the noise floor, card against CPU.  No path may launch a
    hand kernel.
+12. unit cells, iPEPS optimizers, fermionic PEPS and PEPS sampling
+   (``PEPS2D``): the directional cell CTMRG of the checkerboard Ising
+   antiferromagnet (chi 64) against Onsager-Yang, card against CPU at chi
+   16, and the row correlation length above T_c against the exact axial
+   value; the checkerboard simple update of the Heisenberg model (D 3, chi
+   36) below the D 2 value and above QMC with an alternating staggered
+   moment, D 2 card against CPU; ``ipeps_cell_scan`` over 16 TFIM fields in
+   one batched program (ordered below h_c, paramagnetic above, two members
+   against the unbatched call); the full update and the variational cell
+   flow of the Heisenberg model below the simple update, and the C4v
+   variational TFIM; the commuting-Ising purification against Onsager and
+   Yang; ``fpeps_energy`` against Fock ED, the finite fermionic gradient
+   ground state against ED, the p-wave iPEPS against the BdG integral and
+   the checkerboard Hubbard antiferromagnet; 4096 exact samples of a 6 x 6
+   PEPS against its marginals, the GHZ Born machine and VMC of the 2 x 2
+   TFIM against ED.  No path may launch a hand kernel.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  ``--physics-only``
-(``--infinite-only``, ``--2d-only``) runs phases 1, 2 and 9 (10, 11) alone
-and prints neither.  Without a GPU, or without the package beside this file, it exits
-nonzero and prints no result.
+(``--infinite-only``, ``--2d-only``, ``--peps-only``) runs phases 1, 2 and 9
+(10, 11, 12) alone and prints neither.  Without a GPU, or without the
+package beside this file, it exits nonzero and prints no result.
 """
 
 import json
@@ -172,14 +188,15 @@ FIT_TN_STEPS = 60
 # np.einsum to a few seconds.
 # ISING: the Ising model on a random 3-regular multigraph at beta 0.2, whose
 # Bethe free energy is known in closed form.  GRID: imaginary-time TFIM
-# simple update on an open grid; ANCHOR: the same on 3 x 3 against exact
-# diagonalization.  RING: bp_ground_state on a TFIM ring.
+# simple update on an open grid (3 layers, 5 until phase 12); ANCHOR: the
+# same on 3 x 3 against exact diagonalization.  RING: bp_ground_state on a
+# TFIM ring.
 GRAPH = {
     "lowering": {"n_mats": 4096, "dims": (48, 64), "block": 12, "reps": 2,
                  "jax_plan_items": 1047},
     "native": {"n_nodes": 64, "degree": 3, "bond": 4, "seed": 7},
     "ising": {"n_spins": 20000, "beta": 0.2, "timed_sweeps": 10},
-    "grid": {"side": 16, "h": 3.0, "tau": 0.05, "layers": 5, "max_bond": 8},
+    "grid": {"side": 16, "h": 3.0, "tau": 0.05, "layers": 3, "max_bond": 8},
     "anchor": {"side": 3, "h": 3.0, "taus": (0.2, 0.1, 0.05, 0.02),
                "layers": 15, "max_bond": 4},
     "ring": {"n_sites": 32, "h": 2.0, "bond": 8, "steps": 50, "n_sweeps": 10,
@@ -192,11 +209,12 @@ GRAPH = {
 # as about -138.94.  TFIM: the critical open chain, held against the
 # free-fermion energy.  ENSEMBLE: 64 TFIM chains over a field scan in one
 # batched search (3 sweeps; 4 until phase 11).  QUENCH: single-site TDVP
-# from the TFIM ground state (h 1 -> 0.5) in complex128, 3 steps (6 until
-# phase 11; at 10, 64.2 s, with LINDBLAD at 10 too, the whole script took
-# 767.1 s on an H100, over its 750 s budget, PERF.md §6).  ITEBD: the infinite critical
-# chain against -4/pi to the JAX test's 5e-4.  OPSUM: an OpSum-built
-# Heisenberg MPO against heisenberg_mpo through rayleigh.
+# from the TFIM ground state (h 1 -> 0.5) in complex128, 2 steps (3 until
+# phase 12, 6 until phase 11; at 10, 64.2 s, with LINDBLAD at 10 too, the
+# whole script took 767.1 s on an H100, over its 750 s budget, PERF.md §6).
+# ITEBD: the infinite critical chain against -4/pi to the JAX test's 5e-4.
+# OPSUM: an OpSum-built Heisenberg MPO against heisenberg_mpo through
+# rayleigh.
 CHAINS = {
     "spin1": {"n_sites": 100, "bond": 128, "sweeps": 3, "serve_batch": 4096,
               "published": -138.94, "published_tol": 0.01, "seed": 3},
@@ -204,7 +222,7 @@ CHAINS = {
              "seed": 4},
     "ensemble": {"n_members": 64, "h": (0.5, 1.5), "n_sites": 32, "bond": 32,
                  "sweeps": 3, "rtol": 1e-7, "seed": 5},
-    "quench": {"h": 0.5, "dt": 0.05, "steps": 3, "drift_tol": 1e-7,
+    "quench": {"h": 0.5, "dt": 0.05, "steps": 2, "drift_tol": 1e-7,
                "norm_tol": 1e-10},
     "itebd": {"bond": 32, "tol": 5e-4},
     "opsum": {"n_sites": 100, "bond": 16, "rtol": 1e-10, "seed": 6},
@@ -220,8 +238,9 @@ CHAINS = {
 # closed form of its Riemann sum, and the QFT of its 16-bit samples against
 # numpy.fft.  DENSE: the 20-bit quantics MPS evaluated on every grid point
 # through #1.  LINDBLAD: the dephased XXZ chain by W^II, card against CPU,
-# 4 steps (not 20; at 10 the card and CPU runs took 79.7 s, and the script
-# went over its budget, see QUENCH above; 6 until phase 11).  The trace
+# 2 steps (not 20; at 10 the card and CPU runs took 79.7 s, and the script
+# went over its budget, see QUENCH above; 4 until phase 12, 6 until phase
+# 11).  The trace
 # is an overlap with vec(I), whose norm is 2^(n/2): a 2-norm rounding of
 # rho of relative size e moves it by up to e 2^(n/2) ||rho|| (about 2e-11 a
 # step at 20 sites on the card, growing with the bond, while the discarded
@@ -230,7 +249,8 @@ CHAINS = {
 # CV: the batched correction-vector grid on a 32-site Heisenberg ground
 # state, card against CPU at every 8th frequency (each frequency is an
 # independent member of the batch; the CPU takes 77 s for all 32 at CG 16;
-# CG 32 per solve, 64 until phase 11).
+# CG 24 per solve, 32 until phase 12, 64 until phase 11; one sweep, two
+# until phase 12).
 # At eta 0.1 the local systems (K^2 + eta^2) have condition numbers near
 # 1e5, the fixed-depth CG does not converge, and the truncated ALS result
 # is determined only to about 1e-7..1e-5 in float64 (a 1e-15 relative
@@ -238,8 +258,8 @@ CHAINS = {
 # must agree with the CPU to 1e-8 or to ten times that spread, measured in
 # the same run.  MCWF: a trajectory ensemble of the damped TFIM, card
 # against CPU on the same host draws; 32 trajectories, not 64 (64 took 55 s
-# on the card and 31 s on the CPU), 6 steps of 0.1 (10 until phase 11, when
-# the path took 58.8 s).  The bond cap 16 binds (bond 64 moves a
+# on the card and 31 s on the CPU), 2 steps of 0.1 (6 until phase 12, 10
+# until phase 11, when the path took 58.8 s).  The bond cap 16 binds (bond 64 moves a
 # trajectory's record by 3e-5), so the truncated result is determined only
 # as far as near-degenerate singular values at the cut allow: the card must
 # agree with the CPU to 1e-10 or to ten times the CPU's own spread under a
@@ -254,12 +274,12 @@ PHYSICS = {
     "tci": {"n_bits": 40, "freq": 50.0, "max_bond": 16, "tol": 1e-10, "rtol": 1e-9,
             "qft_bits": 16, "qft_tol": 1e-10},
     "dense": {"n_bits": 20, "freq": 50.0, "tol": 1e-5},
-    "lindblad": {"n_sites": 20, "steps": 4, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
+    "lindblad": {"n_sites": 20, "steps": 2, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
                  "max_bond": 64, "trace_tol": 1e-10, "tol": 1e-10},
     "cv": {"n_sites": 32, "bond": 32, "dmrg_sweeps": 4, "n_omegas": 32,
-           "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 2, "cg_iters": 32,
+           "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 1, "cg_iters": 24,
            "cpu_every": 8, "tol": 1e-8, "seed": 22},
-    "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 6, "t": 0.6, "h": 1.0,
+    "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 2, "t": 0.2, "h": 1.0,
              "gamma": 0.2, "max_bond": 16, "tol": 1e-10, "seed": 23},
 }
 # The same paths at a size the CPU rehearses in seconds
@@ -359,22 +379,26 @@ INFINITE_TINY = {
 # need 2.0 GB each and chi^7 = 5.9e11 operations a merge), against the
 # closed form; ising_internal_energy_ad at beta 0.4, chi 24, against
 # Onsager's internal energy.  MERA: the critical TFIM at chi 4 from a numpy
-# start (mera_start), swept as far as the budget allows, against -4/pi and
-# the Ising sigma dimension 1/8, and held to the JAX package's energy and
-# sigma dimension after the same sweeps from the same start (e_ref, dim_ref:
-# scripts/mera_reference.py SWEEPS 4 0); then expand_mera to chi 6, the
+# start (mera_start), swept as far as the budget allows (300 sweeps, 1000
+# until phase 12), against -4/pi and the Ising sigma dimension 1/8, and held
+# to the JAX package's energy and sigma dimension after the same sweeps from
+# the same start (e_ref, dim_ref: scripts/mera_reference.py 300 4 0, 7.9 s
+# on a development CPU); then expand_mera to chi 6, the
 # same state to 1e-8, and a few sweeps there.  THERMAL: thermal_itebd of the
 # critical TFIM at bond 64, beta 2, dbeta 0.005, energy and ln Z against
 # tfim_exact_thermal (the energy is second order in dbeta; ln Z from the
 # norm accumulation carries a first-order bias near 0.12 dbeta); thermal_wii
 # at bond 64 against the same integrals.  IBC: ibc_thermal_correlator of the
 # XX chain at bond 64 against the exact infinite free-fermion Wick oracle
-# (xx_wick below); ibc_dynamic_correlator on a VUMPS ground state of the
-# spin-1/2 Heisenberg chain at bond 64, card against CPU.  LINDBLAD: pure
-# dephasing against exp(-2 gamma t); ness_infinite of the dephased TFIM at
-# bond 32, card against CPU.  IPEPS: the square-root-Boltzmann Ising iPEPS
-# magnetization against Yang at chi 64; ipeps_ground_state of the 2D TFIM at
-# D 3 (q 9), chi 36, with the default 500-step schedule, card against CPU.
+# (xx_wick below; 4 steps, 6 until phase 12); ibc_dynamic_correlator on a
+# VUMPS ground state of the spin-1/2 Heisenberg chain at bond 64, card
+# against CPU (one step, two until phase 12).  LINDBLAD: pure dephasing
+# against exp(-2 gamma t); ness_infinite of the dephased TFIM at bond 32,
+# card against CPU (one chunk, two until phase 12).  IPEPS: the
+# square-root-Boltzmann Ising iPEPS magnetization against Yang at chi 64;
+# ipeps_ground_state of the 2D TFIM at D 3 (q 9), chi 36, with the default
+# 500-step schedule, card against CPU (CTMRG 100 iterations, 200 until
+# phase 12).
 # FACTORIZE: cp_als (rank 16, 100 steps) and tucker_hooi (ranks 32) on 256^3
 # tensors of that rank plus noise, against the noise floor, card against CPU.
 TWO_D = {
@@ -383,18 +407,18 @@ TWO_D = {
     "trg": {"beta": 0.4, "chi": 64, "steps": 12, "tol": 1e-7},
     "hotrg": {"chi": 32, "steps": 30, "tol": 1e-7, "ad_beta": 0.4, "ad_chi": 24,
               "ad_steps": 24, "ad_tol": 1e-4},
-    "mera": {"chi": 4, "sweeps": 1000, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
-             "e_ref": -1.24106356357083, "dim_ref": 1.004104323187203, "ref_tol": 1e-8,
+    "mera": {"chi": 4, "sweeps": 300, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
+             "e_ref": -1.207557338040083, "dim_ref": 1.175235952234035, "ref_tol": 1e-8,
              "seed": 0},
     "thermal": {"beta": 2.0, "bond": 64, "dbeta": 0.005, "e_tol": 1e-5, "lz_tol": 1e-3,
                 "wii_dbeta": 0.02, "wii_tol": 3e-4},
     "ibc": {"beta": 1.0, "bond": 64, "dbeta": 0.02, "n_sites": 8, "site": 3,
-            "dt": 0.05, "steps": 6, "tol": 2e-4, "heis_iters": 40, "heis_tol": 1e-4,
-            "heis_sites": 8, "heis_steps": 2, "seed": 31},
+            "dt": 0.05, "steps": 4, "tol": 2e-4, "heis_iters": 40, "heis_tol": 1e-4,
+            "heis_sites": 8, "heis_steps": 1, "seed": 31},
     "lindblad": {"gamma": 0.35, "t": 0.5, "h": 1.2, "rate": 0.7, "bond": 32,
-                 "t_chunk": 1.0, "max_chunks": 2, "steps_per_unit": 6},
+                 "t_chunk": 1.0, "max_chunks": 1, "steps_per_unit": 6},
     "ipeps": {"beta": 0.5, "chi": 64, "iters": 200, "mag_tol": 1e-8, "h": 3.5,
-              "bond": 3, "gs_chi": 36, "gs_iters": 200},
+              "bond": 3, "gs_chi": 36, "gs_iters": 100},
     "factorize": {"dim": 256, "rank": 16, "steps": 100, "noise": 1e-3, "cpu_steps": 3,
                   "tucker": 32, "tucker_steps": 10, "seed": 32},
 }
@@ -417,6 +441,115 @@ TWO_D_TINY = {
               "gs_chi": 4, "gs_iters": 10},
     "factorize": {**TWO_D["factorize"], "dim": 12, "rank": 3, "steps": 6, "tucker": 3,
                   "tucker_steps": 2},
+}
+# Unit cells, iPEPS optimizers, fermionic PEPS and PEPS sampling (phase 12),
+# at the JAX tests' widths or larger; these paths are launch- and
+# decomposition-bound on the card (PERF.md §6), so depth is cut to the
+# phase's budget, each cut noted here.  CELL_CTMRG: the Ising
+# antiferromagnet on the 2x2 checkerboard at beta 0.5 under a staggered field
+# 1e-4, chi 64 (40 iterations, not 120), its staggered magnetization against
+# Onsager-Yang (the JAX test's 2e-4, the field's shift), card against CPU at
+# chi 16 (cuSOLVER against LAPACK); the row-channel correlation length of
+# the Ising model at beta 0.3 (chi 64, 50 iterations) against 1/(ln coth
+# beta - 2 beta).  CELL_SU: the unrotated Heisenberg model by the
+# checkerboard simple update, the JAX test's D 2, chi 12 (its
+# 500 sweeps; CTMRG 40 iterations, not 120) card against CPU, then D 3 (200
+# sweeps, not 500), chi 36 (20 iterations, not 150; energy and moments in
+# one environment) below it and above QMC's -0.669437, the staggered moment
+# equal on every site and alternating.  SCAN: 16 TFIM fields over h 2-4 at
+# D 2, chi 16 (20 iterations, not 120) in one batched call, ordered below h
+# 2.95 and paramagnetic above 3.3 (the D 2 simple update stays ordered up
+# to about 3.3, above the exact h_c 3.04: the fields between are printed),
+# two members against the unbatched call.  FULL_UPDATE: the Heisenberg
+# model at D 2, chi 16 from the JAX test's simple-update state, 15 steps of
+# 0.02 (the JAX test: 200 steps of 0.1 down to 0.01; 10 steps of 0.1 rise
+# above the simple update).  VARIATIONAL: the checkerboard Heisenberg flow
+# at D 2, chi 16, 35 steps (not 100) of 2 untaped and 2 differentiated
+# CTMRG iterations (not 8 and 6; the trajectories agree, CHANGES.md), its
+# start and end measured in 30 iterations (not 120; converged to 1e-15),
+# below the simple update by 1e-3 and above QMC; the C4v TFIM flow at h 3, 20
+# steps (not 120).  THERMAL2D: the commuting Ising purification at beta 0.6
+# against Onsager and Yang (chi 16, 40 iterations, not 80).  FERMIONS:
+# fpeps_energy on a random 3x3 BdG state against Fock ED; fpeps_ground_state
+# on the 2x3 BdG lattice within 1.5% of ED (100 steps, not the JAX test's
+# 120); fipeps_ground_state of the p-wave model within 1% of the BdG
+# integral (60 steps, not 200, of 2 and 2 iterations, not 8 and 4); the
+# checkerboard Hubbard AFM at U 8 (20 steps, not the JAX test's 35, of 2
+# and 2 iterations, not 8 and 4).  SAMPLING: 4096 samples of a random positive 6x6 D 2 PEPS at chi 8
+# against its marginals (by projected norms) and peps_log_prob; the GHZ Born
+# machine (100 steps, not 250); VMC of the 2x2 TFIM: its estimators over
+# every configuration equal the dense Rayleigh quotient, and 100 sampled
+# steps of 256 draws land within 2.5% of ED (sampled descent from this
+# start stalls 1.5-1.8% above ED in both packages, CHANGES.md; exact-weight
+# descent from other starts reaches 1e-5).
+PEPS2D = {
+    "cell_ctmrg": {"beta": 0.5, "eps": 1e-4, "chi": 64, "iters": 40, "mag_tol": 2e-4,
+                   "xi_beta": 0.3, "xi_chi": 64, "xi_iters": 50, "xi_tol": 0.02,
+                   "cpu_chi": 16, "cpu_iters": 60, "cpu_tol": 1e-10},
+    "cell_su": {"bond": 3, "chi": 36, "iters": 20, "schedule": ((0.1, 100), (0.02, 100)),
+                "mom_tol": 1e-6, "moment": (0.25, 0.5), "cpu_bond": 2, "cpu_chi": 12,
+                "cpu_iters": 40, "cpu_schedule": ((0.1, 200), (0.02, 200), (0.005, 100)),
+                "cpu_tol": 1e-8},
+    "scan": {"n": 16, "h": (2.0, 4.0), "bond": 2, "chi": 16, "iters": 20, "h_c": 3.04,
+             "schedule": ((0.1, 150), (0.02, 150), (0.005, 80)), "ordered_below": 2.95,
+             "ordered": 0.3, "para_above": 3.3, "para": 1e-3, "members": (0, 15),
+             "tol": 1e-10},
+    "full_update": {"bond": 2, "chi": 16, "iters": 40, "ctm_iters": 30,
+                    "su_schedule": ((0.1, 100), (0.02, 100), (0.005, 60)),
+                    "schedule": ((0.02, 15),), "gain": 5e-5},
+    "variational": {"bond": 2, "chi": 16, "steps": 35, "lr": 3e-3, "env_iters": 30,
+                    "refresh_iters": 2, "grad_iters": 2,
+                    "su_schedule": ((0.1, 150), (0.02, 150), (0.005, 80)),
+                    "gain": 1e-3, "trace_tol": 1e-4, "readme": -0.6622, "tfim_h": 3.0,
+                    "tfim_steps": 20},
+    "thermal2d": {"beta": 0.6, "bond": 2, "n_steps": 6, "chi": 16, "iters": 40,
+                  "e_tol": 1e-10, "m_tol": 1e-8},
+    "fermions": {
+        "bdg": {"ly": 3, "lx": 3, "seed": 2, "t": 1.0, "mu": 0.3, "delta": 0.6, "tol": 1e-12},
+        "fpeps": {"ly": 2, "lx": 3, "t": 1.0, "mu": 1.0, "delta": 0.6, "chi": 12,
+                  "steps": 100, "lr": 3e-2, "tol": 0.015},
+        "fipeps": {"t": 1.0, "mu": -4.4, "delta": 1.0, "chi": 12, "steps": 60, "lr": 2e-2,
+                   "refresh_iters": 2, "grad_iters": 2, "env_iters": 60,
+                   "tol": 1e-2, "readme": "0.4%"},
+        "hubbard": {"u": 8.0, "chi": 12, "steps": 20, "lr": 1e-2, "refresh_iters": 2,
+                    "grad_iters": 2, "env_iters": 60, "fill_tol": 0.05, "stagger": 0.6},
+    },
+    "sampling": {"rows": 6, "cols": 6, "bond": 2, "chi": 8, "n": 4096, "seed": 41,
+                 "sites": ((0, 0), (3, 3)), "lp_tol": 1e-6, "sigmas": 5.0,
+                 "ghz_steps": 100, "ghz_chi": 8, "ghz_lr": 0.05, "ghz_tol": 1e-3,
+                 "ghz_samples": 64, "ghz_uniform": 1.0, "vmc_steps": 100,
+                 "vmc_samples": 256, "vmc_lr": 0.05, "vmc_tol": 0.025},
+}
+# The same paths at a size the CPU rehearses in seconds
+# (tests/test_torch_peps2d_smoke.py); the closed forms are looser there.
+PEPS2D_TINY = {
+    "cell_ctmrg": {**PEPS2D["cell_ctmrg"], "chi": 8, "iters": 30, "mag_tol": 1e-3,
+                   "xi_chi": 8, "xi_iters": 30, "xi_tol": 0.1, "cpu_chi": 4, "cpu_iters": 10},
+    "cell_su": {**PEPS2D["cell_su"], "chi": 9, "iters": 10, "schedule": ((0.1, 30),),
+                "mom_tol": 1e-2, "moment": (0.0, 0.5), "cpu_chi": 4, "cpu_iters": 10,
+                "cpu_schedule": ((0.1, 30),)},
+    "scan": {**PEPS2D["scan"], "n": 3, "chi": 4, "iters": 20, "members": (0,),
+             "schedule": ((0.1, 60),)},
+    "full_update": {**PEPS2D["full_update"], "chi": 4, "iters": 10, "ctm_iters": 10,
+                    "su_schedule": ((0.1, 30),), "schedule": ((0.1, 1),), "gain": -1.0},
+    "variational": {**PEPS2D["variational"], "chi": 4, "steps": 1, "env_iters": 10,
+                    "refresh_iters": 1, "grad_iters": 1, "su_schedule": ((0.1, 30),),
+                    "gain": -1.0, "trace_tol": 1.0, "tfim_steps": 2},
+    "thermal2d": {**PEPS2D["thermal2d"], "chi": 4, "iters": 20, "e_tol": 1e-8},
+    "fermions": {
+        "bdg": {**PEPS2D["fermions"]["bdg"], "ly": 2, "lx": 2},
+        "fpeps": {**PEPS2D["fermions"]["fpeps"], "ly": 2, "lx": 2, "chi": 4, "steps": 2,
+                  "tol": 10.0},
+        "fipeps": {**PEPS2D["fermions"]["fipeps"], "chi": 4, "steps": 2, "refresh_iters": 1,
+                   "grad_iters": 1, "env_iters": 10, "tol": 10.0},
+        "hubbard": {**PEPS2D["fermions"]["hubbard"], "chi": 4, "steps": 2, "refresh_iters": 1,
+                    "grad_iters": 1, "env_iters": 10, "fill_tol": 1.0, "stagger": 0.0},
+    },
+    "sampling": {**PEPS2D["sampling"], "rows": 3, "cols": 3, "chi": 4, "n": 256,
+                 "sites": ((0, 0), (1, 1)),
+                 "lp_tol": 1e-8, "ghz_steps": 5, "ghz_tol": 10.0, "ghz_samples": 8,
+                 "ghz_uniform": 0.0,
+                 "vmc_steps": 2, "vmc_samples": 16, "vmc_tol": 10.0},
 }
 TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
 TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
@@ -3061,6 +3194,453 @@ def factorize_path(device, smi, cfg):
     _check("tucker_hooi above the noise floor", vals[device.type][-1] - cfg["noise"], 0.0)
 
 
+# --------------------------------------------------------------------- #
+# Phase 12: unit cells, iPEPS optimizers, fermionic PEPS, PEPS sampling
+# --------------------------------------------------------------------- #
+
+
+def peps2d_paths(device, smi, sizes=PEPS2D):
+    """Phase 12: the cell CTMRG, the checkerboard simple update and its
+    batched scan, the full update, variational iPEPS, 2D thermal states,
+    fermionic PEPS, and PEPS sampling, Born machines and VMC through the
+    user entry points; returns ``{path: (counts, seconds)}``.  Each path runs
+    with every launch count zeroed just before it and read just after: none
+    of them reaches a hand kernel, so none may launch one."""
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+
+    drive("cell_ctmrg", lambda: cell_ctmrg_path(device, smi, sizes["cell_ctmrg"]))
+    drive("cell_su", lambda: cell_su_path(device, smi, sizes["cell_su"]))
+    drive("scan", lambda: cell_scan_path(device, smi, sizes["scan"]))
+    drive("full_update", lambda: full_update_path(device, smi, sizes["full_update"]))
+    drive("variational", lambda: variational_path(device, smi, sizes["variational"]))
+    drive("thermal2d", lambda: thermal2d_path(device, smi, sizes["thermal2d"]))
+    drive("fermions", lambda: fermions_path(device, smi, sizes["fermions"]))
+    drive("sampling", lambda: sampling_path(device, smi, sizes["sampling"]))
+    for path, (counts, _) in runs.items():
+        if any(counts.values()):
+            raise AssertionError(f"path {path}: hand-kernel launches {counts}")
+    return runs
+
+
+def afm_cell(beta, eps, device):
+    """The classical Ising antiferromagnet on the 2x2 checkerboard: site and
+    spin-impurity tensors of both sublattices (``B_AFM = W_A W_B^T``) under a
+    staggered field ``eps``."""
+    import numpy as np
+
+    b_fm = np.array([[math.exp(beta), math.exp(-beta)], [math.exp(-beta), math.exp(beta)]])
+    vals, vecs = np.linalg.eigh(b_fm)
+    w = vecs * np.sqrt(np.maximum(vals, 0.0))[None, :]
+    wa, wb = w, np.array([[0.0, 1.0], [1.0, 0.0]]) @ w
+    spin = np.array([1.0, -1.0])
+
+    def site(wm, p, s):
+        return torch.from_numpy(np.einsum("s,s,su,sl,sd,sr->uldr", s, p, wm, wm, wm,
+                                          wm)).to(device)
+
+    pa, pb, one = np.exp(eps * spin), np.exp(-eps * spin), np.ones(2)
+    a_a, a_b = site(wa, pa, one), site(wb, pb, one)
+    i_a, i_b = site(wa, pa, spin), site(wb, pb, spin)
+    return ((a_a, a_b), (a_b, a_a)), ((i_a, i_b), (i_b, i_a))
+
+
+def cell_ctmrg_path(device, smi, cfg):
+    """The staggered magnetization of the checkerboard antiferromagnet
+    against Onsager-Yang (card, and card against CPU), and the row-channel
+    correlation length above T_c against the exact axial value."""
+    from contractn_tpu_torch.models import (ctmrg_cell, ising_tensor, row_transfer_spectrum,
+                                            site_expectation)
+
+    b = cfg["beta"]
+
+    def moments(dev, chi, iters):
+        cell, imps = afm_cell(b, cfg["eps"], dev)
+        env = ctmrg_cell(cell, chi, iters=iters)
+        return [[float(site_expectation(cell, env, imps[x][y], x, y)) for y in range(2)]
+                for x in range(2)]
+
+    ms, secs = _timed(lambda: moments(device, cfg["chi"], cfg["iters"]), device)
+    exact = yang_magnetization(b)
+    err = max(abs(abs(m) - exact) for row in ms for m in row)
+    stagger = max(abs(ms[0][0] - ms[1][1]), abs(ms[1][0] - ms[0][1]), abs(ms[0][0] + ms[1][0]))
+    log(f"  ctmrg_cell AFM checkerboard at beta {b}, chi {cfg['chi']}, {cfg['iters']} "
+        f"iterations: moments {ms}, Yang {exact!r}, max |diff| {err:.3e} (tol "
+        f"{cfg['mag_tol']}), alternation {stagger:.3e} (tol 1e-9); {secs:.2f} s ({smi})")
+    _check("cell CTMRG staggered magnetization against Yang", err, cfg["mag_tol"])
+    _check("cell CTMRG sublattice alternation", stagger, 1e-9)
+    bx = cfg["xi_beta"]
+
+    def xi():
+        a = ising_tensor(bx, device=device)
+        return row_transfer_spectrum(((a,),), ctmrg_cell(((a,),), cfg["xi_chi"],
+                                                         iters=cfg["xi_iters"]))[1]
+
+    got, secs = _timed(xi, device)
+    exact = 1.0 / (math.log(1.0 / math.tanh(bx)) - 2.0 * bx)
+    rel = abs(got - exact) / exact
+    log(f"  row_transfer_spectrum Ising at beta {bx}, chi {cfg['xi_chi']}: xi {got!r}, exact "
+        f"{exact!r}, relative |diff| {rel:.3e} (tol {cfg['xi_tol']}); {secs:.2f} s")
+    _check("cell CTMRG correlation length against Onsager", rel, cfg["xi_tol"])
+    res, secs = _on((device, torch.device("cpu")),
+                    lambda dev: moments(dev, cfg["cpu_chi"], cfg["cpu_iters"]))
+    diff = max(abs(x - y) for rx, ry in zip(res[device.type], res["cpu"])
+               for x, y in zip(rx, ry))
+    log(f"  ctmrg_cell AFM, chi {cfg['cpu_chi']}: card {secs[device.type]:.2f} s, CPU "
+        f"{secs['cpu']:.2f} s; |card - CPU| {diff:.3e} (tol {cfg['cpu_tol']}; projector SVDs "
+        f"by cuSOLVER against LAPACK)")
+    _check("cell CTMRG magnetization, card against CPU", diff, cfg["cpu_tol"])
+
+
+QMC_HEISENBERG = -0.669437  # Sandvik's QMC ground energy per site of the 2D AFM
+
+
+def cell_su_path(device, smi, cfg):
+    """The checkerboard simple update of the unrotated Heisenberg model: the
+    JAX test's size card against CPU, then D 3 below it and above the QMC
+    energy, with the staggered moment equal on every site and alternating
+    (energy and moments read in one environment)."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (ctmrg_cell, heisenberg_bond_term_2d,
+                                            ipeps_cell_ground_state, simple_update_cell,
+                                            site_expectation, su_cell_absorb)
+    from contractn_tpu_torch.models.ipeps import peps_double_layer
+    from contractn_tpu_torch.models.ipeps_cell import cell_energy_from_env, checkerboard_cell
+
+    res, secs = _on((device, torch.device("cpu")), lambda dev: float(ipeps_cell_ground_state(
+        heisenberg_bond_term_2d(rotated=False, device=dev), cfg["cpu_bond"], cfg["cpu_chi"],
+        schedule=cfg["cpu_schedule"], iters=cfg["cpu_iters"])[2]))
+    e2, diff = res[device.type], abs(res[device.type] - res["cpu"])
+    log(f"  ipeps_cell_ground_state Heisenberg D {cfg['cpu_bond']}, chi {cfg['cpu_chi']}: "
+        f"energy {e2!r}; card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); "
+        f"|card - CPU| {diff:.3e} (tol {cfg['cpu_tol']}; SVDs by cuSOLVER against LAPACK)")
+    _check("cell simple update, card against CPU", diff, cfg["cpu_tol"])
+    h2 = heisenberg_bond_term_2d(rotated=False, device=device)
+    (a, b), su_secs = _timed(lambda: su_cell_absorb(*simple_update_cell(
+        h2, cfg["bond"], schedule=cfg["schedule"])), device)
+
+    def measure():
+        cell = checkerboard_cell(a, b)
+        env = ctmrg_cell(cell, cfg["chi"], iters=cfg["iters"])
+        sites = ((a, b), (b, a))
+        moms = [[[float(site_expectation(cell, env, peps_double_layer(sites[x][y], op), x, y))
+                  for y in range(2)] for x in range(2)]
+                for op in (np.diag([0.5, -0.5]), np.array([[0.0, 0.5], [0.5, 0.0]]))]
+        return float(cell_energy_from_env(a, b, h2, cell, env)), moms
+
+    (e3, (mz, mx)), secs = _timed(measure, device)
+    mvec = [[math.hypot(mz[x][y], mx[x][y]) for y in range(2)] for x in range(2)]
+    comp = mx if abs(mx[0][0]) > abs(mz[0][0]) else mz
+    spread = max(abs(mvec[x][y] - mvec[0][0]) for x in range(2) for y in range(2))
+    stagger = max(abs(comp[0][0] - comp[1][1]), abs(comp[0][0] + comp[0][1]),
+                  abs(comp[0][1] - comp[1][0]))
+    sweeps = sum(n for _, n in cfg["schedule"])
+    log(f"  simple_update_cell + ctmrg_cell Heisenberg D {cfg['bond']}, {sweeps} sweeps "
+        f"({su_secs:.2f} s), chi {cfg['chi']}, {cfg['iters']} iterations ({secs:.2f} s): "
+        f"energy {e3!r} (QMC {QMC_HEISENBERG}, D {cfg['cpu_bond']} {e2!r}); moments "
+        f"{mvec[0][0]!r} (spread {spread:.2e}), dominant component {comp} (alternation "
+        f"{stagger:.2e}, tol {cfg['mom_tol']})")
+    if not QMC_HEISENBERG < e3 < e2:
+        raise AssertionError(f"D {cfg['bond']} energy {e3} outside ({QMC_HEISENBERG}, {e2})")
+    _check("staggered moment equal on every site", spread, cfg["mom_tol"])
+    _check("staggered moment alternation", stagger, cfg["mom_tol"])
+    if not cfg["moment"][0] < mvec[0][0] < cfg["moment"][1]:
+        raise AssertionError(f"staggered moment {mvec[0][0]} outside {cfg['moment']}")
+
+
+def cell_scan_path(device, smi, cfg):
+    """``ipeps_cell_scan`` over a TFIM field family in one batched program:
+    ordered below h_c, paramagnetic above, two members equal to the
+    unbatched pipeline."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (ipeps_cell_ground_state, ipeps_cell_scan,
+                                            tfim_bond_term_2d)
+
+    hs = np.linspace(*cfg["h"], cfg["n"])
+    h2s = torch.stack([tfim_bond_term_2d(1.0, float(h), device=device) for h in hs])
+    out, secs = _timed(lambda: ipeps_cell_scan(h2s, cfg["bond"], cfg["chi"],
+                                               schedule=cfg["schedule"], iters=cfg["iters"],
+                                               ops=(np.diag([1.0, -1.0]),)), device)
+    mz = out["moments"][:, 0].abs().cpu().numpy()
+    energy = out["energy"].cpu().numpy()
+    lo, hi = cfg["ordered_below"], cfg["para_above"]
+    ordered = float(min(m for h, m in zip(hs, mz) if h < lo))
+    para = float(max(m for h, m in zip(hs, mz) if h > hi))
+    log(f"  ipeps_cell_scan TFIM, {cfg['n']} fields over h {cfg['h']}, D {cfg['bond']}, chi "
+        f"{cfg['chi']}: {secs:.2f} s, {secs / cfg['n']:.3f} s a member ({smi}); |<Z>| "
+        f"{[round(float(m), 6) for m in mz]}; below h {lo}: min {ordered!r} (> "
+        f"{cfg['ordered']}), above h {hi}: max {para!r} (< {cfg['para']}); exact h_c "
+        f"{cfg['h_c']}, the fields between are printed, not held")
+    if not ordered > cfg["ordered"]:
+        raise AssertionError(f"scan: moment {ordered} below h_c, not ordered")
+    _check("scan: paramagnetic moments", para, cfg["para"])
+    for i in cfg["members"]:
+        (_, _, e), usecs = _timed(lambda: ipeps_cell_ground_state(
+            h2s[i], cfg["bond"], cfg["chi"], schedule=cfg["schedule"], iters=cfg["iters"]),
+            device)
+        diff = abs(float(e) - float(energy[i]))
+        log(f"  unbatched member h {hs[i]:.4f}: energy {float(e)!r}, |scan - unbatched| "
+            f"{diff:.3e} (tol {cfg['tol']}); {usecs:.2f} s against {secs / cfg['n']:.3f} s a "
+            f"member in the scan")
+        _check("scan member against the unbatched pipeline", diff, cfg["tol"])
+
+
+def full_update_path(device, smi, cfg):
+    """The fast full update of the Heisenberg model from the simple-update
+    state: below it and above the QMC energy."""
+    from contractn_tpu_torch.models import (cell_energy, full_update_ground_state,
+                                            heisenberg_bond_term_2d, simple_update_cell,
+                                            su_cell_absorb)
+
+    h2 = heisenberg_bond_term_2d(device=device)
+    ga, gb, lams = simple_update_cell(h2, cfg["bond"], schedule=cfg["su_schedule"])
+    a0, b0 = su_cell_absorb(ga, gb, lams)
+    e_su = float(cell_energy(a0, b0, h2, cfg["chi"], iters=cfg["iters"]))
+    (_, _, e_fu), secs = _timed(lambda: full_update_ground_state(
+        h2, cfg["bond"], cfg["chi"], schedule=cfg["schedule"], iters=cfg["iters"],
+        init=(a0, b0), n_ctm=1, ctm_iters=cfg["ctm_iters"]), device)
+    e_fu = float(e_fu)
+    steps = sum(n for _, n in cfg["schedule"])
+    log(f"  full_update_ground_state Heisenberg D {cfg['bond']}, chi {cfg['chi']}, {steps} "
+        f"steps: E_FU {e_fu!r}, E_SU {e_su!r} (gain {e_su - e_fu:.3e}, needed "
+        f"{cfg['gain']}), QMC {QMC_HEISENBERG}; {secs:.2f} s, {secs / steps:.3f} s a step "
+        f"({smi})")
+    if not (e_fu < e_su - cfg["gain"] and e_fu > QMC_HEISENBERG):
+        raise AssertionError(f"full update {e_fu} not in ({QMC_HEISENBERG}, {e_su - cfg['gain']})")
+
+
+def variational_path(device, smi, cfg):
+    """Variational checkerboard iPEPS of the Heisenberg model (below the
+    simple update, above QMC, a non-increasing trace) and C4v iPEPS of the
+    TFIM (below its simple update)."""
+    from contractn_tpu_torch.models import (cell_energy, heisenberg_bond_term_2d,
+                                            ipeps_ground_state, simple_update_cell,
+                                            su_cell_absorb, tfim_bond_term_2d,
+                                            variational_ipeps, variational_ipeps_cell)
+
+    sched = cfg["su_schedule"]
+    h2 = heisenberg_bond_term_2d(rotated=False, device=device)
+    a0, b0 = su_cell_absorb(*simple_update_cell(h2, cfg["bond"], schedule=sched))
+    e_su = float(cell_energy(a0, b0, h2, cfg["chi"], iters=cfg["env_iters"]))
+    (_, _, e_var, trace), secs = _timed(lambda: variational_ipeps_cell(
+        h2, cfg["bond"], cfg["chi"], steps=cfg["steps"], lr=cfg["lr"],
+        refresh_iters=cfg["refresh_iters"], grad_iters=cfg["grad_iters"], init=(a0, b0),
+        env_iters=cfg["env_iters"]), device)
+    rise = max([b - a for a, b in zip(trace, trace[1:])] + [0.0])
+    log(f"  variational_ipeps_cell Heisenberg D {cfg['bond']}, chi {cfg['chi']}, "
+        f"{cfg['steps']} steps: E {e_var!r} (E_SU {e_su!r}, gain {e_su - e_var:.3e}, needed "
+        f"{cfg['gain']}; QMC {QMC_HEISENBERG}; the JAX package's README {cfg['readme']} at "
+        f"more steps); trace {trace[0]!r} -> {trace[-1]!r}, largest rise {rise:.2e} (tol "
+        f"{cfg['trace_tol']}); {secs:.2f} s, {secs / cfg['steps']:.3f} s a step ({smi})")
+    if not (e_var < e_su - cfg["gain"] and e_var > QMC_HEISENBERG):
+        raise AssertionError(f"variational cell energy {e_var} not in ({QMC_HEISENBERG}, "
+                             f"{e_su - cfg['gain']})")
+    _check("variational trace non-increasing", rise, cfg["trace_tol"])
+    h2 = tfim_bond_term_2d(1.0, cfg["tfim_h"], device=device)
+    _, e_su = ipeps_ground_state(h2, cfg["bond"], cfg["chi"], schedule=sched, iters=150)
+    e_su = float(e_su)
+    (_, e_var, trace), secs = _timed(lambda: variational_ipeps(
+        h2, cfg["bond"], cfg["chi"], steps=cfg["tfim_steps"], lr=3e-3, su_schedule=sched),
+        device)
+    log(f"  variational_ipeps TFIM h {cfg['tfim_h']}, D {cfg['bond']}, chi {cfg['chi']}, "
+        f"{cfg['tfim_steps']} steps: E {e_var!r}, E_SU {e_su!r} (gain {e_su - e_var:.3e}); "
+        f"{secs:.2f} s")
+    if not e_var < e_su:
+        raise AssertionError(f"variational TFIM energy {e_var} not below {e_su}")
+
+
+def thermal2d_path(device, smi, cfg):
+    """The purification iPEPS of the commuting Ising model: Onsager's
+    energy and Yang's magnetization."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (thermal2d_energy, thermal2d_site_expectation,
+                                            thermal_ipeps_cell)
+
+    b, z = cfg["beta"], np.diag([1.0, -1.0])
+    h2 = torch.from_numpy(-np.kron(z, z)).to(device)
+
+    def run():
+        a, bb = thermal_ipeps_cell(h2, b, cfg["bond"], cfg["n_steps"])
+        e = float(thermal2d_energy(a, bb, h2, cfg["chi"], iters=cfg["iters"]))
+        ms = thermal2d_site_expectation(a, bb, z, cfg["chi"], iters=cfg["iters"])
+        return e, [abs(float(v)) for row in ms for v in row]
+
+    (e, ms), secs = _timed(run, device)
+    e_err = abs(e - onsager_energy(b))
+    m_err = max(abs(m - yang_magnetization(b)) for m in ms)
+    log(f"  thermal_ipeps_cell commuting ZZ at beta {b}, D {cfg['bond']}, chi {cfg['chi']}: "
+        f"energy {e!r}, Onsager {onsager_energy(b)!r}, |diff| {e_err:.3e} (tol "
+        f"{cfg['e_tol']}); |<Z>| against Yang {m_err:.3e} (tol {cfg['m_tol']}); {secs:.2f} s "
+        f"({smi})")
+    _check("thermal 2D energy against Onsager", e_err, cfg["e_tol"])
+    _check("thermal 2D magnetization against Yang", m_err, cfg["m_tol"])
+
+
+def fermions_path(device, smi, cfg):
+    """Fermionic PEPS: the boundary energy against Fock ED, the finite
+    gradient ground state against ED, the p-wave iPEPS against the BdG
+    integral, and the checkerboard Hubbard AFM."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (bdg_energy_2d, fipeps_ground_state, fpeps_energy,
+                                            hubbard_cell_ground_state, random_fpeps)
+    from contractn_tpu_torch.models.fswap import (fock_state, fpeps_ground_state,
+                                                  hopping_fock_matrix)
+
+    c = cfg["bdg"]
+    tn, ph, pv = random_fpeps(c["ly"], c["lx"], seed=c["seed"])
+    psi = fock_state(tn, ph, pv)
+    h = hopping_fock_matrix(c["ly"], c["lx"], t=c["t"], mu=c["mu"], delta=c["delta"])
+    want = float(psi @ (h @ psi)) / float(psi @ psi)
+    got, secs = _timed(lambda: fpeps_energy(tn, ph, pv, t=c["t"], mu=c["mu"],
+                                            delta=c["delta"], device=device), device)
+    log(f"  fpeps_energy {c['ly']}x{c['lx']} BdG: {got!r}, Fock {want!r}, |diff| "
+        f"{abs(got - want):.3e} (tol {c['tol']}); {secs:.2f} s ({smi})")
+    _check("fpeps_energy against Fock ED", abs(got - want), c["tol"])
+    c = cfg["fpeps"]
+    e_ed = float(np.linalg.eigvalsh(hopping_fock_matrix(c["ly"], c["lx"], t=c["t"], mu=c["mu"],
+                                                        delta=c["delta"]))[0])
+    (_, e, tr), secs = _timed(lambda: fpeps_ground_state(
+        c["ly"], c["lx"], t=c["t"], mu=c["mu"], delta=c["delta"], chi=c["chi"],
+        steps=c["steps"], lr=c["lr"], seed=0, device=device), device)
+    rel = (e - e_ed) / abs(e_ed)
+    log(f"  fpeps_ground_state {c['ly']}x{c['lx']} D 2, chi {c['chi']}, {c['steps']} steps: "
+        f"{e!r}, ED {e_ed!r}, relative {rel:.3e} (tol {c['tol']}, from above); {secs:.2f} s")
+    if not (e >= e_ed - 1e-9 and rel < c["tol"]):
+        raise AssertionError(f"fpeps ground state {e} against ED {e_ed}")
+    c = cfg["fipeps"]
+    want = bdg_energy_2d(c["t"], c["mu"], c["delta"])
+    (_, e, dens, tr), secs = _timed(lambda: fipeps_ground_state(
+        chi=c["chi"], t=c["t"], mu=c["mu"], delta=c["delta"], steps=c["steps"], lr=c["lr"],
+        refresh_iters=c["refresh_iters"], grad_iters=c["grad_iters"], env_iters=c["env_iters"],
+        seed=0, device=device), device)
+    rel = (e - want) / abs(want)
+    log(f"  fipeps_ground_state p-wave (t {c['t']}, mu {c['mu']}, delta {c['delta']}) D 2, "
+        f"chi {c['chi']}, {c['steps']} steps: {e!r}, BdG {want!r}, relative {rel:.3e} (tol "
+        f"{c['tol']}, from above; the JAX package's README {c['readme']}), density "
+        f"{dens!r}; {secs:.2f} s, {secs / c['steps']:.3f} s a step")
+    if not (e > want - 1e-8 and rel < c["tol"]):
+        raise AssertionError(f"fipeps ground state {e} against BdG {want}")
+    c = cfg["hubbard"]
+    (_, _, e, obs, tr), secs = _timed(lambda: hubbard_cell_ground_state(
+        chi=c["chi"], u=c["u"], steps=c["steps"], lr=c["lr"], refresh_iters=c["refresh_iters"],
+        grad_iters=c["grad_iters"], env_iters=c["env_iters"], seed=0, device=device), device)
+    corr = e + c["u"] / 2.0
+    fill = obs["n_up"][0][0] + obs["n_dn"][0][0]
+    stag = obs["n_up"][0][0] - obs["n_up"][1][0]
+    log(f"  hubbard_cell_ground_state U {c['u']}, mu U/2, D 2, chi {c['chi']}, {c['steps']} "
+        f"steps: E + U/2 {corr!r} (< 0), filling {fill!r}, staggered n_up {stag!r}, docc "
+        f"{obs['docc'][0][0]!r}; {secs:.2f} s")
+    if not (corr < 0.0 and abs(fill - 1.0) < c["fill_tol"] and stag > c["stagger"]):
+        raise AssertionError(f"Hubbard cell: E + U/2 {corr}, filling {fill}, obs {obs}")
+
+
+def sampling_path(device, smi, cfg):
+    """Exact raster sampling of a random 6 x 6 PEPS against its marginals and
+    log-probabilities, the GHZ Born machine, and VMC of the 2 x 2 TFIM
+    against exact diagonalization."""
+    import itertools
+
+    import numpy as np
+
+    from contractn_tpu_torch.models import (fit_peps_born, fit_peps_vmc, peps_born_machine,
+                                            peps_log_prob, sample_peps, vmc_energy_and_grad)
+    from contractn_tpu_torch.models.peps_born import peps_log_norm
+    from contractn_tpu_torch.models.peps_vmc import peps_log_amp
+
+    gen = torch.Generator(device=device).manual_seed(cfg["seed"])
+    rows, cols, chi, n = cfg["rows"], cfg["cols"], cfg["chi"], cfg["n"]
+    grid = peps_born_machine(rows, cols, bond_dim=cfg["bond"], generator=gen, device=device)
+    (samples, log_p), secs = _timed(lambda: sample_peps(grid, n, chi, generator=gen), device)
+    lp_err = float((log_p - peps_log_prob(grid, samples.long(), chi)).abs().max())
+    log_z = float(peps_log_norm(grid, chi))
+    worst = 0.0
+    for r, c in cfg["sites"]:
+        proj = [[t[1:] if (rr, cc) == (r, c) else t for cc, t in enumerate(row)]
+                for rr, row in enumerate(grid)]
+        p1 = math.exp(float(peps_log_norm(proj, chi)) - log_z)
+        freq = float((samples[:, r, c] == 1).double().mean())
+        sigma = math.sqrt(p1 * (1 - p1) / n)
+        worst = max(worst, abs(freq - p1) / sigma)
+        log(f"  marginal p(s_{r}{c} = 1) {p1!r}, empirical {freq!r} ({abs(freq - p1) / sigma:.2f}"
+            f" sigma)")
+    log(f"  sample_peps {rows}x{cols} D {cfg['bond']}, chi {chi}, {n} samples: {secs:.2f} s "
+        f"({smi}); max |log p - peps_log_prob| {lp_err:.3e} (tol {cfg['lp_tol']}); worst "
+        f"marginal {worst:.2f} sigma (tol {cfg['sigmas']})")
+    _check("sampler log-probabilities against peps_log_prob", lp_err, cfg["lp_tol"])
+    _check("sampled marginals (sigmas)", worst, cfg["sigmas"])
+    data = torch.stack([torch.zeros((2, 3), dtype=torch.int64),
+                        torch.ones((2, 3), dtype=torch.int64)]).to(device)
+    born = peps_born_machine(2, 3, bond_dim=2, generator=gen, device=device)
+    (born, losses), secs = _timed(lambda: fit_peps_born(
+        born, data, steps=cfg["ghz_steps"], chi=cfg["ghz_chi"], lr=cfg["ghz_lr"]), device)
+    nll = float(losses[-1])
+    back, _ = sample_peps(born, cfg["ghz_samples"], cfg["ghz_chi"], generator=gen)
+    flat = back.reshape(back.shape[0], -1)
+    uniform = float((flat == flat[:, :1]).all(dim=1).double().mean())
+    heads = float(flat[:, 0].double().mean())
+    log(f"  fit_peps_born GHZ 2x3, {cfg['ghz_steps']} steps: NLL {nll!r}, ln 2 "
+        f"{math.log(2.0)!r}, |diff| {abs(nll - math.log(2.0)):.3e} (tol {cfg['ghz_tol']}); "
+        f"{cfg['ghz_samples']} samples back, share all-equal {uniform} (needed "
+        f"{cfg['ghz_uniform']}), share of ones {heads:.3f}; {secs:.2f} s")
+    _check("GHZ NLL against ln 2", abs(nll - math.log(2.0)), cfg["ghz_tol"])
+    if uniform < cfg["ghz_uniform"] or (cfg["ghz_uniform"] and not 0.1 < heads < 0.9):
+        raise AssertionError("GHZ samples are not the two configurations")
+    z, x = np.diag([1.0, -1.0]), np.array([[0.0, 1.0], [1.0, 0.0]])
+    h2 = -np.kron(z, z) - 0.75 * (np.kron(x, np.eye(2)) + np.kron(np.eye(2), x)) / 2.0
+    cfgs = np.array(list(itertools.product([0, 1], repeat=4))).reshape(-1, 2, 2)
+    ham = np.zeros((16, 16))
+    for i1, i2 in [(0, 1), (2, 3), (0, 2), (1, 3)]:
+        for s in range(16):
+            bits = [(s >> (3 - k)) & 1 for k in range(4)]
+            for p in range(2):
+                for q in range(2):
+                    t = list(bits)
+                    t[i1], t[i2] = p, q
+                    ham[s, sum(v << (3 - k) for k, v in enumerate(t))] += h2[
+                        bits[i1] * 2 + bits[i2], p * 2 + q]
+    e_ed = float(np.linalg.eigvalsh(ham)[0])
+    vmc = [[0.3 + 0.5 * t for t in row] for row in peps_born_machine(
+        2, 2, bond_dim=2, generator=gen, device=device)]
+    cfgs = torch.from_numpy(cfgs).to(device)
+
+    def exact(grid):
+        """The VMC estimators over every configuration with its Born weight
+        (the exact energy), and the dense Rayleigh quotient of the same
+        amplitudes, which they must equal."""
+        e, _, var = vmc_energy_and_grad(grid, cfgs, h2, h2,
+                                        weights=torch.exp(peps_log_prob(grid, cfgs, 4)))
+        amps = np.array([float(sg * torch.exp(lg)) for sg, lg in
+                         (peps_log_amp(grid, c) for c in cfgs)])
+        dense = float(amps @ ham @ amps / (amps @ amps))
+        return float(e), float(var), abs(float(e) - dense)
+
+    e0, _, _ = exact(vmc)
+    (vmc, es), secs = _timed(lambda: fit_peps_vmc(
+        vmc, h2, h2, steps=cfg["vmc_steps"], num_samples=cfg["vmc_samples"], chi=4,
+        lr=cfg["vmc_lr"], generator=gen), device)
+    e, var, identity = exact(vmc)
+    rel = abs(e - e_ed) / abs(e_ed)
+    log(f"  fit_peps_vmc 2x2 TFIM D 2, {cfg['vmc_steps']} steps of {cfg['vmc_samples']} "
+        f"samples: exact energy of the result {e!r} (start {e0!r}; the estimators over every "
+        f"configuration against the dense Rayleigh quotient {identity:.2e}, tol 1e-10), ED "
+        f"{e_ed!r}, relative {rel:.3e} (tol {cfg['vmc_tol']}), variance {var:.3e}, last "
+        f"sampled {es[-1]!r}; {secs:.2f} s, {secs / cfg['vmc_steps']:.3f} s a step")
+    _check("VMC estimators against the dense Rayleigh quotient", identity, 1e-10)
+    _check("VMC energy against ED", rel, cfg["vmc_tol"])
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -3160,6 +3740,14 @@ def two_d_phase(device, smi):
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
 
+def peps_phase(device, smi):
+    log("== 12. unit cells, iPEPS optimizers, fermionic PEPS, PEPS sampling")
+    t12 = time.perf_counter()
+    for path, (counts, secs) in peps2d_paths(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+
 def main():
     if not (ROOT / "contractn_tpu_torch" / "__init__.py").is_file():
         fail(f"no contractn_tpu_torch package beside {Path(__file__).name}; "
@@ -3173,7 +3761,7 @@ def main():
     phase_build()
     kernel_smem(device)
     only = {"--physics-only": physics_phase, "--infinite-only": infinite_phase,
-            "--2d-only": two_d_phase}
+            "--2d-only": two_d_phase, "--peps-only": peps_phase}
     if len(sys.argv) == 2 and sys.argv[1] in only:  # phases 1, 2 and one more alone
         only[sys.argv[1]](device, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -3213,6 +3801,7 @@ def main():
     physics_phase(device, smi)
     infinite_phase(device, smi)
     two_d_phase(device, smi)
+    peps_phase(device, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,14 +18,15 @@ Two departures in form, not in result:
 * torch's ``.grad`` of a real loss of complex parameters already is
   ``dE/dRe + i dE/dIm``, the direction the JAX package gets by conjugating
   JAX's gradient; it is used as it is.
-* Adam is the optax update written out (bias-corrected moments, the second
-  moment from ``|g|^2`` per complex element, ``eps = 1e-8``): for complex
-  tensors ``torch.optim.Adam`` forms the second moment per real component,
-  whose trajectory differs.
+* Adam is the optax update written out (:class:`~..ops.optim.Adam`: the
+  second moment from ``|g|^2`` per complex element): for complex tensors
+  ``torch.optim.Adam`` forms the second moment per real component, whose
+  trajectory differs.
 """
 
 import torch
 
+from ..ops.optim import Adam, descend
 from .bp import BPGraph
 from .bp_gauge import _rebuild
 from .bp_measure import term_batches
@@ -68,28 +69,6 @@ def bp_energy(tn, bond_terms=(), local_terms=(), n_sweeps=30,
         return float(fn(ts))
 
 
-def _adam(lr, b1=0.9, b2=0.999, eps=1e-8):
-    """optax's ``adam(lr)`` as a step function on a list of tensors."""
-    state = {"count": 0, "mu": None, "nu": None}
-
-    def step(params, grads):
-        if state["mu"] is None:
-            state["mu"] = [torch.zeros_like(g) for g in grads]
-            state["nu"] = [torch.zeros_like(g.real) for g in grads]
-        state["count"] += 1
-        c1 = 1 - b1 ** state["count"]
-        c2 = 1 - b2 ** state["count"]
-        out = []
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            norm2 = (g * g.conj()).real if g.is_complex() else g * g
-            mu.mul_(b1).add_((1 - b1) * g)
-            nu.mul_(b2).add_((1 - b2) * norm2)
-            out.append(p - lr * (mu / c1) / (torch.sqrt(nu / c2) + eps))
-        return out
-
-    return step
-
-
 def bp_ground_state(tn, bond_terms=(), local_terms=(), steps=400,
                     lr=0.02, n_sweeps=30, damping=0.0, device=None):
     """Gradient-descent ground state of a graph Hamiltonian with BP
@@ -107,15 +86,13 @@ def bp_ground_state(tn, bond_terms=(), local_terms=(), steps=400,
     """
     energy_fn, ts = make_bp_energy(tn, bond_terms, local_terms, n_sweeps,
                                    damping, device)
-    update = _adam(float(lr))
-    params = [t.detach() for t in ts]
+    params = [t.detach().clone().requires_grad_(True) for t in ts]
+    opt = Adam(params, lr=float(lr))
     energies = []
     for _ in range(int(steps)):
-        leaves = [p.requires_grad_(True) for p in params]
-        e = energy_fn(leaves)
-        grads = torch.autograd.grad(e, leaves)
+        e = energy_fn(params)
+        descend(opt, params, torch.autograd.grad(e, params))
         energies.append(e.detach())
-        with torch.no_grad():
-            params = update([p.detach() for p in leaves], grads)
+    params = [p.detach() for p in params]
     energies = torch.stack(energies) if energies else torch.zeros(0)
     return _rebuild(tn, params, energy_fn.bonds), energies

@@ -22,18 +22,21 @@ from .mps import MPS
 
 
 def apply_mpo_to_mps(mpo, mps):
-    """Exact MPO application: bond dimensions multiply (``W * D``)."""
-    w = mpo.cores  # (N, do, di, W, W)
-    a = mps.cores  # (N, di, D, D)
-    n, do, di, wb, _ = w.shape
-    bond = a.shape[-1]
-    new = peinsum("nabwv,nbij->nawivj", w, a).reshape(
-        n, do, wb * bond, wb * bond
-    )
+    """Exact MPO application: bond dimensions multiply (``W * D``).  Axes of
+    the cores and boundary vectors before their own are a batch (broadcast
+    between the two)."""
+    w = mpo.cores  # (..., N, do, di, W, W)
+    a = mps.cores  # (..., N, di, D, D)
+    wb, bond = w.shape[-1], a.shape[-1]
+    new = peinsum("...nabwv,...nbij->...nawivj", w, a)
+    new = new.reshape(*new.shape[:-4], wb * bond, wb * bond)
     dtype = new.dtype
-    left = torch.kron(mpo.left.to(dtype), mps.left.to(dtype))
-    right = torch.kron(mpo.right.to(dtype), mps.right.to(dtype))
-    return MPS(new, left, right)
+
+    def kron(x, y):
+        z = x.to(dtype)[..., :, None] * y.to(dtype)[..., None, :]
+        return z.reshape(*z.shape[:-2], -1)
+
+    return MPS(new, kron(mpo.left, mps.left), kron(mpo.right, mps.right))
 
 
 def _grid_device(grid, device):

@@ -142,30 +142,37 @@ def _qr_dtype(dtype):
     return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
 
 
+def _amax(t):
+    """Largest magnitude of each matrix of a stack, clamped away from 0."""
+    return torch.clamp(t.abs().amax(dim=(-2, -1)), min=1e-300)
+
+
 def _left_qr_sweep(cores, left, right):
     """Left-canonicalization sweep over the sites.
 
     Carry: the ``(D, D)`` remainder matrix C (everything to the left,
     QR-factored away) plus the log-scale register.  Per step:
     ``T = C . A_site`` then ``T = Q R`` with Q the new site.
-    Returns ``(qs, e0, w, log)`` with ``w`` normalized.
+    Returns ``(qs, e0, w, log)`` with ``w`` normalized.  Axes of the cores
+    (and boundary vectors) before the ``(N, d, D, D)`` ones are a batch of
+    independent chains.
     """
-    n, d, bond, _ = cores.shape
+    *batch, n, d, bond, _ = cores.shape
     dt = _qr_dtype(cores.dtype)
     cores = cores.to(dt)
     e0 = _e0(bond, dt, cores.device)
-    c = torch.outer(e0, left.to(dt))
+    c = e0[:, None] * left.to(dt)[..., None, :]
     log = torch.zeros((), dtype=real_dtype(dt), device=cores.device)
     qs = []
-    for a in cores:
-        t = peinsum("ab,dbc->dac", c, a)
-        q, r = torch.linalg.qr(t.reshape(d * bond, bond))
-        scale = torch.clamp(r.abs().max(), min=1e-300)
-        c, log = r / scale, log + torch.log(scale)
-        qs.append(q.reshape(d, bond, bond))
-    w = peinsum("ab,b->a", c, right.to(dt))
-    nrm = torch.clamp(torch.linalg.norm(w), min=1e-300)
-    return torch.stack(qs), e0, w / nrm, log + torch.log(nrm)
+    for a in cores.unbind(-4):
+        t = peinsum("...ab,...dbc->...dac", c, a)
+        q, r = torch.linalg.qr(t.reshape(*batch, d * bond, bond))
+        scale = _amax(r)
+        c, log = r / scale[..., None, None], log + torch.log(scale)
+        qs.append(q.reshape(*batch, d, bond, bond))
+    w = peinsum("...ab,...b->...a", c, right.to(dt))
+    nrm = torch.clamp(torch.linalg.norm(w, dim=-1), min=1e-300)
+    return torch.stack(qs, dim=-4), e0, w / nrm[..., None], log + torch.log(nrm)
 
 
 def left_canonicalize(mps):
@@ -224,42 +231,43 @@ def _fixed_svd_sweep(cores, left, right, chi):
     Input cores must be left-isometric (run :func:`_left_qr_sweep` first)
     so per-bond truncation is globally optimal.  ``(N, d, Db, Db)`` in,
     ``(N, d, chi, chi)`` out; effective ranks below ``chi`` appear as
-    zero-padded bonds.
+    zero-padded bonds.  Leading axes are a batch, as in
+    :func:`_left_qr_sweep`.
 
     Returns ``(cores', new_left, new_right, log_norm, err_sq)`` where the
     output state is normalized and ``err_sq`` is the total discarded squared
     weight (relative, since the input is isometric+normalized).
     """
-    n, d, db, _ = cores.shape
+    *batch, n, d, db, _ = cores.shape
     dt = _qr_dtype(cores.dtype)
     cores = cores.to(dt)
     device = cores.device
     k = min(db, d * chi)  # singular values per step
-    m = torch.zeros((db, chi), dtype=dt, device=device)
-    m[:, 0] = right.to(dt)
+    m = torch.zeros((*right.shape[:-1], db, chi), dtype=dt, device=device)
+    m[..., 0] = right.to(dt)
     log = torch.zeros((), dtype=real_dtype(dt), device=device)
     err = torch.zeros((), dtype=real_dtype(dt), device=device)
     sites = []
-    for a in reversed(cores):
-        t = peinsum("dab,bc->dac", a, m)  # (d, Db, chi)
-        mat = t.transpose(0, 1).reshape(db, d * chi)
+    for a in reversed(cores.unbind(-4)):
+        t = peinsum("...dab,...bc->...dac", a, m)  # (d, Db, chi)
+        mat = t.transpose(-3, -2).reshape(*batch, db, d * chi)
         u, s, vh = torch.linalg.svd(mat, full_matrices=False)
         if k > chi:
             # s is in the rescaled frame; exp(2*log) restores true units
-            err = err + torch.sum(s[chi:] ** 2) * torch.exp(2.0 * log)
-            u, s, vh = u[:, :chi], s[:chi], vh[:chi]
+            err = err + torch.sum(s[..., chi:] ** 2, dim=-1) * torch.exp(2.0 * log)
+            u, s, vh = u[..., :chi], s[..., :chi], vh[..., :chi, :]
         elif k < chi:
             u = torch.nn.functional.pad(u, (0, chi - k))
             s = torch.nn.functional.pad(s, (0, chi - k))
             vh = torch.nn.functional.pad(vh, (0, 0, 0, chi - k))
-        sites.append(vh.reshape(chi, d, chi).transpose(0, 1))
-        m = u * s[None, :].to(dt)
-        scale = torch.clamp(m.abs().max(), min=1e-300)
-        m, log = m / scale, log + torch.log(scale)
-    new_left = peinsum("a,ac->c", left.to(dt), m)
-    nrm = torch.clamp(torch.linalg.norm(new_left), min=1e-300)
+        sites.append(vh.reshape(*batch, chi, d, chi).transpose(-3, -2))
+        m = u * s[..., None, :].to(dt)
+        scale = _amax(m)
+        m, log = m / scale[..., None, None], log + torch.log(scale)
+    new_left = peinsum("...a,...ac->...c", left.to(dt), m)
+    nrm = torch.clamp(torch.linalg.norm(new_left, dim=-1), min=1e-300)
     e0 = _e0(chi, dt, device)
-    return (torch.stack(sites[::-1]), new_left / nrm, e0,
+    return (torch.stack(sites[::-1], dim=-4), new_left / nrm[..., None], e0,
             log + torch.log(nrm), err)
 
 
@@ -395,41 +403,45 @@ def truncate_safe(cores, left, right, chi):
     backward), because padded/rank-deficient bonds give stock SVD gradients
     NaNs — autograd flows through the whole compression.
 
+    Leading axes of the cores (and of ``left`` / ``right``, which may also
+    be shared) are a batch: each member is compressed on its own, in the
+    same launches.
+
     Returns ``(cores, log_norm)`` with the boundary weights absorbed and the
     state normalized.
     """
     from ..ops.linalg_ad import svd_safe
 
     n = len(cores)
-    carry = left[None, :]
+    carry = left[..., None, :]
     log = torch.zeros((), dtype=real_dtype(cores[0].dtype), device=cores[0].device)
     lcan = []
     for i in range(n):
-        t = peinsum("ai,dij->daj", carry, cores[i])
-        d_dim, a_dim, j_dim = t.shape
-        m = t.permute(1, 0, 2).reshape(a_dim * d_dim, j_dim)
+        t = peinsum("...ai,...dij->...daj", carry, cores[i])
+        *batch, d_dim, a_dim, j_dim = t.shape
+        m = t.transpose(-3, -2).reshape(*batch, a_dim * d_dim, j_dim)
         u, sv, vh = svd_safe(m)
-        k = min(m.shape)
-        lcan.append(u.reshape(a_dim, d_dim, k).permute(1, 0, 2))
-        nrm = torch.clamp(torch.linalg.norm(sv), min=1e-300)
+        k = min(m.shape[-2:])
+        lcan.append(u.reshape(*batch, a_dim, d_dim, k).transpose(-3, -2))
+        nrm = torch.clamp(torch.linalg.norm(sv, dim=-1), min=1e-300)
         log = log + torch.log(nrm)
-        carry = (sv / nrm)[:, None].to(vh.dtype) * vh
-    closing = peinsum("kj,j->k", carry, right)
+        carry = (sv / nrm[..., None])[..., :, None].to(vh.dtype) * vh
+    closing = peinsum("...kj,...j->...k", carry, right)
     # right-to-left truncation
     out = [None] * n
-    rcarry = closing[:, None]  # (k, 1)
+    rcarry = closing[..., :, None]  # (..., k, 1)
     for i in reversed(range(n)):
-        t = peinsum("dik,ka->dia", lcan[i], rcarry)
-        d_dim, i_dim, a_dim = t.shape
-        m = t.permute(1, 0, 2).reshape(i_dim, d_dim * a_dim)
+        t = peinsum("...dik,...ka->...dia", lcan[i], rcarry)
+        *batch, d_dim, i_dim, a_dim = t.shape
+        m = t.transpose(-3, -2).reshape(*batch, i_dim, d_dim * a_dim)
         u, sv, vh = svd_safe(m)
-        k = min(min(m.shape), int(chi))
-        u, sv, vh = u[:, :k], sv[:k], vh[:k]
-        out[i] = vh.reshape(k, d_dim, a_dim).permute(1, 0, 2)
-        nrm = torch.clamp(torch.linalg.norm(sv), min=1e-300)
+        k = min(min(m.shape[-2:]), int(chi))
+        u, sv, vh = u[..., :k], sv[..., :k], vh[..., :k, :]
+        out[i] = vh.reshape(*batch, k, d_dim, a_dim).transpose(-3, -2)
+        nrm = torch.clamp(torch.linalg.norm(sv, dim=-1), min=1e-300)
         log = log + torch.log(nrm)
-        rcarry = u * (sv / nrm)[None, :].to(u.dtype)
+        rcarry = u * (sv / nrm[..., None])[..., None, :].to(u.dtype)
     # rcarry collapses to the (1, 1) leftmost residue (left vector was
     # absorbed in the first sweep): fold its sign/scale into core 0
-    out[0] = out[0] * rcarry[0, 0]
+    out[0] = out[0] * rcarry[..., :1, :1, None]
     return out, log

@@ -27,6 +27,12 @@ Hermitian inputs are assumed already symmetrized (callers do
 import torch
 
 _EPS = 1e-12
+# On the card, matrices wider than this on their short side go to cuSOLVER's
+# QR-iteration ``gesvd``; up to it, torch's default (Jacobi, batched up to 32
+# x 32, ``gesvd`` where Jacobi does not converge) is faster.  The crossover
+# lies between 64 and 128 on an H100 in float64 (scripts/time_cell_svd.py,
+# PERF.md §6).
+_JACOBI_MAX = 64
 
 
 def _h(x):
@@ -55,27 +61,27 @@ def _svd_jvp_broadened(u, s, vh, dm, eps):
     v = _h(vh)
     ut = _h(u)
     ds_mat = ut @ dm @ v
-    ds = torch.real(torch.diagonal(ds_mat))
+    ds = torch.real(torch.diagonal(ds_mat, dim1=-2, dim2=-1))
 
-    s_j, s_i = s[None, :], s[:, None]
+    s_j, s_i = s[..., None, :], s[..., :, None]
     gap = (s_j + s_i) * (s_j - s_i)  # s_j^2 - s_i^2, zero diagonal
     f = (gap / (gap * gap + eps)).to(dm.dtype)
     s_inv = (s / (s * s + eps)).to(dm.dtype)
 
     dss = s_j.to(dm.dtype) * ds_mat  # dS . diag(s)
     sds = s_i.to(dm.dtype) * ds_mat  # diag(s) . dS
-    anti_diag = 0.5 * (ds_mat - _h(ds_mat)) * torch.diag(s_inv)
+    anti_diag = 0.5 * (ds_mat - _h(ds_mat)) * torch.diag_embed(s_inv)
     du = u @ (f * (dss + _h(dss)) + anti_diag)
     dv = v @ (f * (sds + _h(sds)))
 
-    m_rows, n_cols = dm.shape
-    k = s.shape[0]
+    m_rows, n_cols = dm.shape[-2:]
+    k = s.shape[-1]
     if m_rows > k:
         dav = dm @ v
-        du = du + (dav - u @ (ut @ dav)) * s_inv[None, :]
+        du = du + (dav - u @ (ut @ dav)) * s_inv[..., None, :]
     if n_cols > k:
         dahu = _h(dm) @ u
-        dv = dv + (dahu - v @ (vh @ dahu)) * s_inv[None, :]
+        dv = dv + (dahu - v @ (vh @ dahu)) * s_inv[..., None, :]
     return du, ds, _h(dv)
 
 
@@ -108,10 +114,18 @@ class _EighSafe(torch.autograd.Function):
         return 0.5 * (gm + _h(gm)), None
 
 
+def small_svd(m):
+    """Compact ``(u, s, vh) = svd(m)`` of a small matrix (or a batch of them,
+    on the leading axes), on ``m``'s device: LAPACK on the CPU; on the card
+    the cuSOLVER driver measured fastest for the size (:data:`_JACOBI_MAX`)."""
+    driver = "gesvd" if m.is_cuda and min(m.shape[-2:]) > _JACOBI_MAX else None
+    return torch.linalg.svd(m, full_matrices=False, driver=driver)
+
+
 class _SvdSafe(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m, eps):
-        u, s, vh = torch.linalg.svd(m, full_matrices=False)
+        u, s, vh = small_svd(m)
         ctx.save_for_backward(u, s, vh)
         ctx.eps = eps
         return u, s, vh
@@ -119,7 +133,7 @@ class _SvdSafe(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_u, g_s, g_vh):
         u, s, vh = ctx.saved_tensors
-        shape = (u.shape[0], vh.shape[1])
+        shape = tuple(u.shape[:-1]) + tuple(vh.shape[-1:])
         gm = _adjoint(lambda dm: _svd_jvp_broadened(u, s, vh, dm, ctx.eps),
                       shape, u.dtype, u.device, (g_u, g_s, g_vh))
         return gm, None
@@ -139,9 +153,10 @@ def eigh_safe(m, eps=_EPS):
 def svd_safe(m, eps=_EPS):
     """Compact ``(u, s, vh) = svd(m)`` with a degeneracy-broadened backward.
 
-    The forward is ``torch.linalg.svd(m, full_matrices=False)``; the reverse
+    The forward is :func:`small_svd`; the reverse
     rule broadens the ``1/(s_i^2 - s_j^2)`` gap factors and the ``1/s``
-    inverses (rank deficiency).  Real or complex ``(m, n)`` input.
+    inverses (rank deficiency).  Real or complex ``(..., m, n)`` input
+    (leading axes are a batch).
     """
     return _SvdSafe.apply(m, eps)
 

@@ -175,6 +175,14 @@ def test_infinite_chains_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_peps2d_paths_on_gpu(cuda_device):
+    # phase 12 at its rehearsal size: every check (card against CPU where the
+    # phase compares them, the scan's vmap of cuSOLVER SVDs), no hand kernel
+    runs = chip_smoke.peps2d_paths(cuda_device, "test", chip_smoke.PEPS2D_TINY)
+    assert all(not any(counts.values()) for counts, _ in runs.values())
+
+
+@pytest.mark.cuda
 def test_contract_gradient_lands_on_the_operand_device(cuda_device):
     import contractn_tpu_torch as ttn
 

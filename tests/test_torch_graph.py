@@ -165,7 +165,8 @@ def test_scans_cover_every_ported_module():
                    "models/tdvp.py", "models/dmrgx.py", "models/dmrg3s.py",
                    "models/itebd.py", "models/circuits.py", "models/linsolve.py",
                    "models/chebyshev.py", "models/excitations.py",
-                   *(f"models/{m}.py" for m in SLICE7 + SLICE8 + SLICE9)):
+                   "ops/optim.py",
+                   *(f"models/{m}.py" for m in SLICE7 + SLICE8 + SLICE9 + SLICE10)):
         assert module in scanned, module
     assert all(p.is_file() for p in _port_files())
 
@@ -180,6 +181,12 @@ SLICE8 = ("gaussians", "chemistry", "vumps", "umps", "vumps_cell",
 # Queue A §9.3-§9.4, §10.1 and the head of §10.2
 SLICE9 = ("thermal", "lindblad_infinite", "ibc", "ctmrg", "trg", "hotrg",
           "factorize", "mera", "ipeps")
+# Queue A §10.2-§10.4: unit cells, fermionic PEPS, PEPS sampling
+SLICE10 = ("ctmrg_cell", "ipeps_cell", "full_update", "thermal2d", "variational",
+           "fswap", "fipeps", "fipeps_spin", "peps_sample", "peps_born", "peps_vmc")
+
+
+SLICES = SLICE7 + SLICE8 + SLICE9 + SLICE10
 
 
 def test_models_export_the_jax_names_of_each_ported_module():
@@ -189,14 +196,14 @@ def test_models_export_the_jax_names_of_each_ported_module():
         tree = ast.parse((pkg_dir / "models" / "__init__.py").read_text())
         out = {}
         for node in tree.body:
-            if isinstance(node, ast.ImportFrom) and node.module in SLICE7 + SLICE8 + SLICE9:
+            if isinstance(node, ast.ImportFrom) and node.module in SLICES:
                 out.setdefault(node.module, set()).update(
                     a.asname or a.name for a in node.names)
         return out
 
     want = exported(PORT.parent / "contractn_tpu")
     got = exported(PORT)
-    assert set(want) == set(SLICE7 + SLICE8 + SLICE9) and got == want
+    assert set(want) == set(SLICES) and got == want
     import contractn_tpu_torch.models as models
 
     for names in got.values():
