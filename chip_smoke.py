@@ -121,11 +121,23 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    the checkerboard Hubbard antiferromagnet; 4096 exact samples of a 6 x 6
    PEPS against its marginals, the GHZ Born machine and VMC of the 2 x 2
    TFIM against ED.  No path may launch a hand kernel.
+13. the 3D family and tree tensor networks (``THREE_D``): 3D HOTRG at
+   bench.py's ``bench_hotrg3d`` configuration (chi 12, 10 steps) in float32
+   (effective TFLOP/s) and float64, at chi 16 with its peak device memory,
+   and the JAX test's closed forms (decoupled chains and layers, the low- and
+   high-temperature series, the autodiff energy against central differences,
+   the checkerboard flow against the uniform one), card against CPU; the
+   cubic-lattice iPEPS of the 3D TFIM against perturbation theory; the
+   commuting 3D purification against the classical bond correlation;
+   ``ttn_dmrg`` of the 4 x 4 and 8 x 8 snake TFIM against the chain DMRG,
+   ``ttn_ground_state`` card against CPU and against ED, and
+   ``ttn_tdvp_evolve`` against dense exponentiation.  No path may launch a
+   hand kernel.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  ``--physics-only``
-(``--infinite-only``, ``--2d-only``, ``--peps-only``) runs phases 1, 2 and 9
-(10, 11, 12) alone and prints neither.  Without a GPU, or without the
+(``--infinite-only``, ``--2d-only``, ``--peps-only``, ``--3d-only``) runs
+phases 1, 2 and 9 (10, 11, 12, 13) alone and prints neither.  Without a GPU, or without the
 package beside this file, it exits nonzero and prints no result.
 """
 
@@ -204,25 +216,28 @@ GRAPH = {
 }
 # Finite-chain paths (phase 8).  SPIN1: the spin-1 Heisenberg chain of
 # ITensors.jl's documented DMRG example (N 100, 5 sweeps; its bond schedule
-# rises to 200, cut here to one cap of 128, kernel #1's reach, and to 3
-# sweeps to make room for phase 11), whose ground energy the example prints
-# as about -138.94.  TFIM: the critical open chain, held against the
-# free-fermion energy.  ENSEMBLE: 64 TFIM chains over a field scan in one
-# batched search (3 sweeps; 4 until phase 11).  QUENCH: single-site TDVP
-# from the TFIM ground state (h 1 -> 0.5) in complex128, 2 steps (3 until
-# phase 12, 6 until phase 11; at 10, 64.2 s, with LINDBLAD at 10 too, the
+# rises to 200, cut here to one cap of 128, kernel #1's reach, and to 2
+# sweeps to make room for phase 13, 3 until then: the second sweep lands
+# within 5e-10 of the third), whose ground energy the example prints as
+# about -138.94.  TFIM: the critical open chain, held against the
+# free-fermion energy (3 sweeps, 5 until phase 13: on the CPU the second
+# sweep lands 6e-9 to 2e-8 from it, the third 2e-15).  ENSEMBLE: 64 TFIM chains over a field scan in one
+# batched search (2 sweeps, 3 until phase 13, 4 until phase 11: on the CPU
+# the worst member is 3.7e-9 from free fermions after two).  QUENCH: single-site TDVP
+# from the TFIM ground state (h 1 -> 0.5) in complex128, 1 step (2 until
+# phase 13, 3 until phase 12, 6 until phase 11; at 10, 64.2 s, with LINDBLAD at 10 too, the
 # whole script took 767.1 s on an H100, over its 750 s budget, PERF.md §6).
 # ITEBD: the infinite critical chain against -4/pi to the JAX test's 5e-4.
 # OPSUM: an OpSum-built Heisenberg MPO against heisenberg_mpo through
 # rayleigh.
 CHAINS = {
-    "spin1": {"n_sites": 100, "bond": 128, "sweeps": 3, "serve_batch": 4096,
+    "spin1": {"n_sites": 100, "bond": 128, "sweeps": 2, "serve_batch": 4096,
               "published": -138.94, "published_tol": 0.01, "seed": 3},
-    "tfim": {"n_sites": 100, "h": 1.0, "bond": 64, "sweeps": 5, "rtol": 1e-8,
+    "tfim": {"n_sites": 100, "h": 1.0, "bond": 64, "sweeps": 3, "rtol": 1e-8,
              "seed": 4},
     "ensemble": {"n_members": 64, "h": (0.5, 1.5), "n_sites": 32, "bond": 32,
-                 "sweeps": 3, "rtol": 1e-7, "seed": 5},
-    "quench": {"h": 0.5, "dt": 0.05, "steps": 2, "drift_tol": 1e-7,
+                 "sweeps": 2, "rtol": 1e-7, "seed": 5},
+    "quench": {"h": 0.5, "dt": 0.05, "steps": 1, "drift_tol": 1e-7,
                "norm_tol": 1e-10},
     "itebd": {"bond": 32, "tol": 5e-4},
     "opsum": {"n_sites": 100, "bond": 16, "rtol": 1e-10, "seed": 6},
@@ -247,7 +262,8 @@ CHAINS = {
 # weight stays below 1e-12), so its tolerance is scaled by that condition
 # number, as the kernels' agreement is.
 # CV: the batched correction-vector grid on a 32-site Heisenberg ground
-# state, card against CPU at every 8th frequency (each frequency is an
+# state, card against CPU at every 16th frequency (every 8th until phase
+# 13; each frequency is an
 # independent member of the batch; the CPU takes 77 s for all 32 at CG 16;
 # CG 24 per solve, 32 until phase 12, 64 until phase 11; one sweep, two
 # until phase 12).
@@ -278,7 +294,7 @@ PHYSICS = {
                  "max_bond": 64, "trace_tol": 1e-10, "tol": 1e-10},
     "cv": {"n_sites": 32, "bond": 32, "dmrg_sweeps": 4, "n_omegas": 32,
            "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 1, "cg_iters": 24,
-           "cpu_every": 8, "tol": 1e-8, "seed": 22},
+           "cpu_every": 16, "tol": 1e-8, "seed": 22},
     "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 2, "t": 0.2, "h": 1.0,
              "gamma": 0.2, "max_bond": 16, "tol": 1e-10, "seed": 23},
 }
@@ -379,26 +395,27 @@ INFINITE_TINY = {
 # need 2.0 GB each and chi^7 = 5.9e11 operations a merge), against the
 # closed form; ising_internal_energy_ad at beta 0.4, chi 24, against
 # Onsager's internal energy.  MERA: the critical TFIM at chi 4 from a numpy
-# start (mera_start), swept as far as the budget allows (300 sweeps, 1000
-# until phase 12), against -4/pi and the Ising sigma dimension 1/8, and held
-# to the JAX package's energy and sigma dimension after the same sweeps from
-# the same start (e_ref, dim_ref: scripts/mera_reference.py 300 4 0, 7.9 s
-# on a development CPU); then expand_mera to chi 6, the
+# start (mera_start), swept as far as the budget allows (150 sweeps, 300
+# until phase 13, 1000 until phase 12), against -4/pi and the Ising sigma
+# dimension 1/8, and held to the JAX package's energy and sigma dimension
+# after the same sweeps from the same start (e_ref, dim_ref:
+# scripts/mera_reference.py 150 4 0, 6.5 s on a development CPU); then expand_mera to chi 6, the
 # same state to 1e-8, and a few sweeps there.  THERMAL: thermal_itebd of the
-# critical TFIM at bond 64, beta 2, dbeta 0.005, energy and ln Z against
-# tfim_exact_thermal (the energy is second order in dbeta; ln Z from the
-# norm accumulation carries a first-order bias near 0.12 dbeta); thermal_wii
+# critical TFIM at bond 64, beta 2, dbeta 0.01 (0.005 until phase 13),
+# energy and ln Z against tfim_exact_thermal (the energy is second order in
+# dbeta; ln Z from the norm accumulation carries a first-order bias: -1.27e-4
+# at dbeta 0.005, -2.49e-4 at 0.01 on the CPU, against its 1e-3); thermal_wii
 # at bond 64 against the same integrals.  IBC: ibc_thermal_correlator of the
 # XX chain at bond 64 against the exact infinite free-fermion Wick oracle
-# (xx_wick below; 4 steps, 6 until phase 12); ibc_dynamic_correlator on a
+# (xx_wick below; 2 steps, 4 until phase 13, 6 until phase 12); ibc_dynamic_correlator on a
 # VUMPS ground state of the spin-1/2 Heisenberg chain at bond 64, card
 # against CPU (one step, two until phase 12).  LINDBLAD: pure dephasing
 # against exp(-2 gamma t); ness_infinite of the dephased TFIM at bond 32,
 # card against CPU (one chunk, two until phase 12).  IPEPS: the
 # square-root-Boltzmann Ising iPEPS magnetization against Yang at chi 64;
 # ipeps_ground_state of the 2D TFIM at D 3 (q 9), chi 36, with the default
-# 500-step schedule, card against CPU (CTMRG 100 iterations, 200 until
-# phase 12).
+# 500-step schedule, card against CPU (CTMRG 60 iterations, 100 until
+# phase 13, 200 until phase 12).
 # FACTORIZE: cp_als (rank 16, 100 steps) and tucker_hooi (ranks 32) on 256^3
 # tensors of that rank plus noise, against the noise floor, card against CPU.
 TWO_D = {
@@ -407,18 +424,18 @@ TWO_D = {
     "trg": {"beta": 0.4, "chi": 64, "steps": 12, "tol": 1e-7},
     "hotrg": {"chi": 32, "steps": 30, "tol": 1e-7, "ad_beta": 0.4, "ad_chi": 24,
               "ad_steps": 24, "ad_tol": 1e-4},
-    "mera": {"chi": 4, "sweeps": 300, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
-             "e_ref": -1.207557338040083, "dim_ref": 1.175235952234035, "ref_tol": 1e-8,
+    "mera": {"chi": 4, "sweeps": 150, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
+             "e_ref": -1.1876674635329412, "dim_ref": 1.2022168246527503, "ref_tol": 1e-8,
              "seed": 0},
-    "thermal": {"beta": 2.0, "bond": 64, "dbeta": 0.005, "e_tol": 1e-5, "lz_tol": 1e-3,
+    "thermal": {"beta": 2.0, "bond": 64, "dbeta": 0.01, "e_tol": 1e-5, "lz_tol": 1e-3,
                 "wii_dbeta": 0.02, "wii_tol": 3e-4},
     "ibc": {"beta": 1.0, "bond": 64, "dbeta": 0.02, "n_sites": 8, "site": 3,
-            "dt": 0.05, "steps": 4, "tol": 2e-4, "heis_iters": 40, "heis_tol": 1e-4,
+            "dt": 0.05, "steps": 2, "tol": 2e-4, "heis_iters": 40, "heis_tol": 1e-4,
             "heis_sites": 8, "heis_steps": 1, "seed": 31},
     "lindblad": {"gamma": 0.35, "t": 0.5, "h": 1.2, "rate": 0.7, "bond": 32,
                  "t_chunk": 1.0, "max_chunks": 1, "steps_per_unit": 6},
     "ipeps": {"beta": 0.5, "chi": 64, "iters": 200, "mag_tol": 1e-8, "h": 3.5,
-              "bond": 3, "gs_chi": 36, "gs_iters": 100},
+              "bond": 3, "gs_chi": 36, "gs_iters": 60},
     "factorize": {"dim": 256, "rank": 16, "steps": 100, "noise": 1e-3, "cpu_steps": 3,
                   "tucker": 32, "tucker_steps": 10, "seed": 32},
 }
@@ -452,15 +469,15 @@ TWO_D_TINY = {
 # chi 16 (cuSOLVER against LAPACK); the row-channel correlation length of
 # the Ising model at beta 0.3 (chi 64, 50 iterations) against 1/(ln coth
 # beta - 2 beta).  CELL_SU: the unrotated Heisenberg model by the
-# checkerboard simple update, the JAX test's D 2, chi 12 (its
-# 500 sweeps; CTMRG 40 iterations, not 120) card against CPU, then D 3 (200
+# checkerboard simple update, the JAX test's D 2, chi 12 (250 sweeps, not
+# its 500; CTMRG 40 iterations, not 120) card against CPU, then D 3 (200
 # sweeps, not 500), chi 36 (20 iterations, not 150; energy and moments in
 # one environment) below it and above QMC's -0.669437, the staggered moment
 # equal on every site and alternating.  SCAN: 16 TFIM fields over h 2-4 at
 # D 2, chi 16 (20 iterations, not 120) in one batched call, ordered below h
 # 2.95 and paramagnetic above 3.3 (the D 2 simple update stays ordered up
 # to about 3.3, above the exact h_c 3.04: the fields between are printed),
-# two members against the unbatched call.  FULL_UPDATE: the Heisenberg
+# the last member against the unbatched call (two until phase 13).  FULL_UPDATE: the Heisenberg
 # model at D 2, chi 16 from the JAX test's simple-update state, 15 steps of
 # 0.02 (the JAX test: 200 steps of 0.1 down to 0.01; 10 steps of 0.1 rise
 # above the simple update).  VARIATIONAL: the checkerboard Heisenberg flow
@@ -488,11 +505,11 @@ PEPS2D = {
                    "cpu_chi": 16, "cpu_iters": 60, "cpu_tol": 1e-10},
     "cell_su": {"bond": 3, "chi": 36, "iters": 20, "schedule": ((0.1, 100), (0.02, 100)),
                 "mom_tol": 1e-6, "moment": (0.25, 0.5), "cpu_bond": 2, "cpu_chi": 12,
-                "cpu_iters": 40, "cpu_schedule": ((0.1, 200), (0.02, 200), (0.005, 100)),
+                "cpu_iters": 40, "cpu_schedule": ((0.1, 100), (0.02, 100), (0.005, 50)),
                 "cpu_tol": 1e-8},
     "scan": {"n": 16, "h": (2.0, 4.0), "bond": 2, "chi": 16, "iters": 20, "h_c": 3.04,
              "schedule": ((0.1, 150), (0.02, 150), (0.005, 80)), "ordered_below": 2.95,
-             "ordered": 0.3, "para_above": 3.3, "para": 1e-3, "members": (0, 15),
+             "ordered": 0.3, "para_above": 3.3, "para": 1e-3, "members": (15,),
              "tol": 1e-10},
     "full_update": {"bond": 2, "chi": 16, "iters": 40, "ctm_iters": 30,
                     "su_schedule": ((0.1, 100), (0.02, 100), (0.005, 60)),
@@ -550,6 +567,61 @@ PEPS2D_TINY = {
                  "lp_tol": 1e-8, "ghz_steps": 5, "ghz_tol": 10.0, "ghz_samples": 8,
                  "ghz_uniform": 0.0,
                  "vmc_steps": 2, "vmc_samples": 16, "vmc_tol": 10.0},
+}
+# The 3D family and tree tensor networks (phase 13).  FLOW: bench.py's own
+# bench_hotrg3d configuration (beta 0.2, ising3d_tensor_smooth, chi 12, 10
+# steps, float32; its TFLOP/s counted as bench.py counts them, steps x 3 x 2
+# chi^11) and the same flow in float64 on the card, then chi 16 (3 steps,
+# float32, held to float64), a width the TPU could not hold, with its peak
+# device memory.  ANCHORS: the JAX test's closed forms at its chi (4-6),
+# steps and tolerances in float64, card against CPU where the truncation is
+# not degenerate.  IPEPS: the cubic TFIM at examples/three_dimensions.py's
+# sizes (D 2, chi 6, its 380-sweep schedule, 20 flow steps) against
+# perturbation theory at h 0.5 and 8, card against CPU at h 0.5.  THERMAL:
+# the commuting purification at beta 0.3 (D 2, chi 6; three seed merges and
+# 19 steps) against the classical bond correlation (22 steps), card against
+# CPU.  TTN: ttn_dmrg of the 4x4 snake TFIM (h 3.5, chi 32, the JAX test's 5
+# sweeps) against the chain DMRG (bond 48, 2 sweeps, not 6: converged to
+# 1e-14) within the JAX test's 2e-6; the 8x8 snake (chi 32, 4 sweeps)
+# against the chain at bond 64 (2 sweeps, 1.1e-5 from its 12-sweep value):
+# the chi-32 tree converges 5.8e-4 above the chain (10 sweeps; 8.9e-4 after
+# 4), so it is held at 1.5e-3, not 1e-5 (PERF.md §6).  ADAM:
+# ttn_ground_state of the 8-site TFIM (chi 16) card against CPU over its
+# first 50 steps, then 2000 steps (not the JAX test's 3000: 4.7e-5 above ED
+# against its 1e-4) against ED.  TDVP: ttn_tdvp_evolve (chi 16, dt 0.05, the
+# JAX test's 8 real-time steps) against dense exponentiation.
+THREE_D = {
+    "flow": {"beta": 0.2, "chi": 12, "steps": 10, "big_chi": 16, "big_steps": 3},
+    "anchors": {"chi": 4, "steps": 25, "layers_chi": 6, "high_t_chi": 5, "ad_steps": 20,
+                "ab_steps": 22, "chains_tol": 1e-13, "layers_tol": 4e-4, "low_t_tol": 1e-6,
+                "high_t_tol": 3e-5, "ad_tol": 2e-4, "fd_tol": 5e-6, "ab_tol": 1e-7,
+                "tol": 1e-10},
+    "ipeps": {"bond": 2, "chi": 6, "steps": 20, "fields": (0.5, 8.0), "cpu_fields": (0.5,),
+              "tol": 2e-3, "schedule": ((0.1, 150), (0.02, 150), (0.005, 80))},
+    "thermal": {"beta": 0.3, "bond": 2, "n_steps": 3, "chi": 6, "steps": 19, "tol": 1e-9},
+    "ttn": {"h": 3.5, "chi": 32, "sweeps": 5, "chain_bond": 48, "chain_sweeps": 2,
+            "rtol": 2e-6, "big_side": 8, "big_sweeps": 4, "big_bond": 64,
+            "big_chain_sweeps": 2, "big_rtol": 1.5e-3, "seed": 51},
+    "adam": {"n": 8, "h": 1.05, "chi": 16, "steps": 2000, "lr": 0.02, "cpu_steps": 50,
+             "tol": 1e-4, "seed": 52},
+    "tdvp": {"n": 8, "h": 1.05, "chi": 16, "dt": 0.05, "steps": 8, "seed": 53, "tol": 1e-10},
+}
+# The same paths at a size the CPU rehearses in seconds; the closed forms are
+# looser there (a few flow steps are far from the thermodynamic limit).
+THREE_D_TINY = {
+    "flow": {"beta": 0.2, "chi": 4, "steps": 3, "big_chi": 5, "big_steps": 2},
+    "anchors": {**THREE_D["anchors"], "steps": 8, "layers_chi": 4, "high_t_chi": 4,
+                "ad_steps": 6, "ab_steps": 5, "chains_tol": 1.0, "layers_tol": 1.0,
+                "low_t_tol": 1.0, "high_t_tol": 1.0, "ad_tol": 1.0, "fd_tol": 1.0,
+                "ab_tol": 1.0},
+    "ipeps": {**THREE_D["ipeps"], "chi": 4, "steps": 4, "schedule": ((0.1, 20),),
+              "tol": 10.0},
+    "thermal": {**THREE_D["thermal"], "n_steps": 1, "steps": 3},
+    "ttn": {**THREE_D["ttn"], "chi": 4, "sweeps": 2, "chain_bond": 8, "chain_sweeps": 2,
+            "rtol": 1.0, "big_side": 4, "big_sweeps": 1, "big_bond": 8,
+            "big_chain_sweeps": 2, "big_rtol": 1.0},
+    "adam": {**THREE_D["adam"], "chi": 4, "steps": 20, "cpu_steps": 5, "tol": 10.0},
+    "tdvp": {**THREE_D["tdvp"], "steps": 1},
 }
 TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
 TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
@@ -3641,6 +3713,306 @@ def sampling_path(device, smi, cfg):
     _check("VMC energy against ED", rel, cfg["vmc_tol"])
 
 
+def three_d_ttn_paths(device, smi, sizes=THREE_D):
+    """Phase 13: the 3D family (3D HOTRG, cubic iPEPS, 3D thermal
+    purification) and tree tensor networks (TTN-DMRG, the Adam ground state,
+    TTN-TDVP) through the user entry points; returns ``{path: (counts,
+    seconds)}``.  Each path runs with every launch count zeroed just before it
+    and read just after: the 3D merge is a plain GEMM chain outside any hand
+    kernel, so no path may launch one."""
+    runs = {}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+
+    drive("hotrg3d_flow", lambda: hotrg3d_flow_path(device, smi, sizes["flow"]))
+    drive("hotrg3d_anchors", lambda: hotrg3d_anchor_path(device, smi, sizes["anchors"]))
+    drive("ipeps3d", lambda: ipeps3d_path(device, smi, sizes["ipeps"]))
+    drive("thermal3d", lambda: thermal3d_path(device, smi, sizes["thermal"]))
+    drive("ttn_dmrg", lambda: ttn_dmrg_path(device, smi, sizes["ttn"]))
+    drive("ttn_adam", lambda: ttn_adam_path(device, smi, sizes["adam"]))
+    drive("ttn_tdvp", lambda: ttn_tdvp_path(device, smi, sizes["tdvp"]))
+    for path, (counts, _) in runs.items():
+        if any(counts.values()):
+            raise AssertionError(f"path {path}: hand-kernel launches {counts}")
+    return runs
+
+
+def hotrg3d_flow_path(device, smi, cfg):
+    """bench_hotrg3d's flow in float32 (effective TFLOP/s as bench.py counts
+    them) and float64 on the card, then chi 16 with its peak memory."""
+    from contractn_tpu_torch.models import hotrg3d_log_z, ising3d_tensor_smooth
+
+    cuda = device.type == "cuda"
+    a64 = ising3d_tensor_smooth(cfg["beta"], device=device)
+    a32 = a64.float()
+    chi, steps = cfg["chi"], cfg["steps"]
+    hotrg3d_log_z(a32, chi, 1)  # warm-up: library handles and workspaces
+    lz32, secs = _timed(lambda: hotrg3d_log_z(a32, chi, steps), device)
+    flops = steps * 3 * 2 * chi ** 11  # bench.py:589
+    log(f"  3D HOTRG (bench_hotrg3d) beta {cfg['beta']}, chi {chi}, {steps} steps, float32: "
+        f"ln z {lz32!r}; {secs:.3f} s, {flops / secs / 1e12:.2f} TFLOP/s effective "
+        f"({flops:.3e} FLOPs), {100 * flops / secs / PEAK_F32:.1f}% of the fp32 peak "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s ({smi})")
+    lz64, secs64 = _timed(lambda: hotrg3d_log_z(a64, chi, steps), device)
+    log(f"  the same flow in float64: ln z {lz64!r}; {secs64:.3f} s, "
+        f"{flops / secs64 / 1e12:.2f} TFLOP/s effective; |float32 - float64| "
+        f"{abs(lz32 - lz64):.3e} (tol {TOL_F32})")
+    _check("3D HOTRG float32 ln z against float64", abs(lz32 - lz64), TOL_F32)
+    big, big_steps = cfg["big_chi"], cfg["big_steps"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    lz_big, secs = _timed(lambda: hotrg3d_log_z(a32, big, big_steps), device)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if cuda else 0.0
+    flops = big_steps * 3 * 2 * big ** 11
+    log(f"  chi {big}, {big_steps} steps, float32: ln z {lz_big!r}; {secs:.3f} s, "
+        f"{flops / secs / 1e12:.2f} TFLOP/s effective; peak device memory {peak:.2f} GB "
+        f"(two chi^8 float32 buffers: {2 * 4 * big ** 8 / 1e9:.2f} GB)")
+    if cuda:  # the float32 run's cached blocks would not leave room for float64's
+        torch.cuda.empty_cache()
+    ref, secs = _timed(lambda: hotrg3d_log_z(a64, big, big_steps), device)
+    log(f"  the same in float64: ln z {ref!r}; {secs:.3f} s, {flops / secs / 1e12:.2f} "
+        f"TFLOP/s effective; |float32 - float64| {abs(lz_big - ref):.3e} (tol {TOL_F32})")
+    _check(f"3D HOTRG chi {big} float32 against float64", abs(lz_big - ref), TOL_F32)
+
+
+def ising3d_site(beta, device, h=0.0):
+    """Cubic Ising site tensor and its sigma impurity, float64 on ``device``."""
+    import numpy as np
+
+    ch, sh = math.sqrt(math.cosh(beta)), math.sqrt(math.sinh(beta))
+    w = np.array([[ch, sh], [ch, -sh]])
+    weight = np.exp(h * np.array([1.0, -1.0]))
+    ein = "s,su,sl,sd,sr,sf,sk->uldrfk"
+    return tuple(torch.from_numpy(np.einsum(ein, s, w, w, w, w, w, w)).to(device)
+                 for s in (weight, weight * np.array([1.0, -1.0])))
+
+
+def hotrg3d_anchor_path(device, smi, cfg):
+    """The JAX test's closed forms in float64, each on the card and the CPU."""
+    from contractn_tpu_torch.models import (hotrg3d_ab_log_z, hotrg3d_log_z,
+                                            ising3d_internal_energy_ad, ising3d_tensor_smooth)
+
+    chi, steps, ad = cfg["chi"], cfg["steps"], cfg["ad_steps"]
+    u_series = -3.0 + 12.0 * math.exp(-9.6) + 60.0 * math.exp(-16.0)  # beta 0.8
+
+    def fd(dev):
+        up, dn = (hotrg3d_log_z(ising3d_site(0.8 + d, dev)[0], chi, ad) for d in (1e-4, -1e-4))
+        return -(up - dn) / 2e-4
+
+    # (what, flow, closed form, its tolerance, card against CPU held?)  Where
+    # a truncation cuts an exactly degenerate multiplet (two decoupled layers,
+    # the low-temperature Z2 pairs under AD, the two tied sides of a == b),
+    # which vectors are kept is cuSOLVER's or LAPACK's choice: those readings
+    # are held to the closed form on both sides and their gap printed
+    cases = (
+        ("decoupled chains", lambda dev: hotrg3d_log_z(ising3d_tensor_smooth(
+            0.0, beta_z=0.7, device=dev), chi, steps), math.log(2.0 * math.cosh(0.7)),
+         cfg["chains_tol"], True),
+        ("decoupled layers (Onsager), beta 0.2", lambda dev: hotrg3d_log_z(
+            ising3d_tensor_smooth(0.2, beta_z=0.0, device=dev), cfg["layers_chi"], steps),
+         onsager_log_z(0.2), cfg["layers_tol"], False),
+        ("low-temperature series, beta 0.8", lambda dev: hotrg3d_log_z(
+            ising3d_site(0.8, dev)[0], chi, steps),
+         2.4 + math.exp(-9.6) + 3.0 * math.exp(-16.0), cfg["low_t_tol"], True),
+        ("high-temperature series, beta 0.1", lambda dev: hotrg3d_log_z(
+            ising3d_site(0.1, dev)[0], cfg["high_t_chi"], steps),
+         math.log(2.0) + 3.0 * math.log(math.cosh(0.1)) + 3.0 * math.tanh(0.1) ** 4,
+         cfg["high_t_tol"], True),
+        ("AD internal energy, beta 0.8", lambda dev: ising3d_internal_energy_ad(
+            0.8, chi, ad, device=dev), u_series, cfg["ad_tol"], False),
+        ("central differences, beta 0.8", fd, u_series, cfg["fd_tol"], False),
+        ("checkerboard a == b against the uniform flow", lambda dev: hotrg3d_ab_log_z(
+            *(ising3d_site(0.3, dev, h=0.01)[0],) * 2, chi, cfg["ab_steps"]),
+         hotrg3d_log_z(ising3d_site(0.3, torch.device("cpu"), h=0.01)[0], chi,
+                       cfg["ab_steps"] + 3), cfg["ab_tol"], False),
+    )
+    for what, fn, want, tol, held in cases:
+        vals, secs = _on((device, torch.device("cpu")), fn)
+        diff = abs(vals[device.type] - vals["cpu"])
+        for dev, got in vals.items():
+            _check(f"3D HOTRG {what} ({dev})", abs(got - want), tol)
+        got = vals[device.type]
+        log(f"  {what}: {got!r}, closed form {want!r}, |diff| {abs(got - want):.3e} (tol "
+            f"{tol}); card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s; |card - CPU| "
+            f"{diff:.3e} " + (f"(tol {cfg['tol']})" if held else "(degenerate truncation)"))
+        if held:
+            _check(f"3D HOTRG {what}, card against CPU", diff, cfg["tol"])
+
+
+def ipeps3d_path(device, smi, cfg):
+    """Cubic-lattice iPEPS of the 3D TFIM in both perturbative limits, card
+    against CPU."""
+    from contractn_tpu_torch.models import ipeps3d_ground_state, tfim_bond_term_3d
+
+    for h in cfg["fields"]:
+        pt = -3.0 - h * h / 12.0 if h < 1.0 else -h - 3.0 / (4.0 * h)
+        devices = (device,) + ((torch.device("cpu"),) if h in cfg["cpu_fields"] else ())
+        vals, secs = _on(devices, lambda dev: ipeps3d_ground_state(
+            tfim_bond_term_3d(1.0, h, device=dev), cfg["bond"], cfg["chi"],
+            schedule=cfg["schedule"], steps=cfg["steps"])[1])
+        e = vals[device.type]
+        log(f"  ipeps3d_ground_state TFIM h {h}, D {cfg['bond']}, chi {cfg['chi']}, "
+            f"{sum(n for _, n in cfg['schedule'])} sweeps, {cfg['steps']} flow steps: E/site "
+            f"{e!r}, perturbation theory {pt!r}, |diff| {abs(e - pt):.3e} (tol {cfg['tol']}); "
+            f"card {secs[device.type]:.2f} s ({smi})")
+        _check(f"cubic iPEPS h {h} against perturbation theory", abs(e - pt), cfg["tol"])
+        if "cpu" in vals:
+            diff = abs(e - vals["cpu"])
+            log(f"    CPU {secs['cpu']:.2f} s; |card - CPU| {diff:.3e} (tol {TOL_CARD_VS_CPU})")
+            _check(f"cubic iPEPS h {h}, card against CPU", diff, TOL_CARD_VS_CPU)
+
+
+def thermal3d_path(device, smi, cfg):
+    """The commuting purification equals the classical 3D Ising model: its
+    checkerboard bond correlation against the classical impurity flow (three
+    more merges, the seed's), card against CPU."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (hotrg3d_bond_expectation, tfim_bond_term_3d,
+                                            thermal3d_bond_expectation, thermal_ipeps3d)
+
+    zz = np.kron(np.diag([1.0, -1.0]), np.diag([1.0, -1.0]))
+
+    def run(dev):
+        ga, gb, lams = thermal_ipeps3d(tfim_bond_term_3d(1.0, 0.0, device=dev), cfg["beta"],
+                                       cfg["bond"], cfg["n_steps"])
+        return thermal3d_bond_expectation(ga, gb, lams, zz, cfg["chi"], steps=cfg["steps"])
+
+    vals, secs = _on((device, torch.device("cpu")), run)
+    a, imp = ising3d_site(cfg["beta"], device)
+    classical = hotrg3d_bond_expectation(a, imp, imp, cfg["chi"], cfg["steps"] + 3)
+    q = vals[device.type]
+    log(f"  thermal_ipeps3d commuting ZZ, beta {cfg['beta']}, D {cfg['bond']}, chi "
+        f"{cfg['chi']}: <ZZ> {q!r}, classical {classical!r}, |diff| {abs(q - classical):.3e} "
+        f"(tol {cfg['tol']}); card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s; "
+        f"|card - CPU| {abs(q - vals['cpu']):.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("3D thermal <ZZ> against the classical flow", abs(q - classical), cfg["tol"])
+    _check("3D thermal <ZZ>, card against CPU", abs(q - vals["cpu"]), TOL_CARD_VS_CPU)
+
+
+def _sweep_marks(device):
+    """Wraps ``krylov.lanczos_ground`` to record the host time (after a
+    synchronize) of every root solve: ``ttn_dmrg`` starts each sweep with the
+    one Lanczos solve whose start is a matrix.  Returns ``(marks, restore)``."""
+    from contractn_tpu_torch.ops import krylov
+
+    real = krylov.lanczos_ground
+    marks = []
+
+    def marked(matvec, v0, iters, *args, **kwargs):
+        if v0.ndim == 2:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        return real(matvec, v0, iters, *args, **kwargs)
+
+    krylov.lanczos_ground = marked
+    return marks, lambda: setattr(krylov, "lanczos_ground", real)
+
+
+def ttn_dmrg_path(device, smi, cfg):
+    """TTN-DMRG of the snake-flattened 2D TFIM against the chain DMRG on the
+    same MPO, at 4 x 4 and 8 x 8."""
+    from contractn_tpu_torch.models import MPS, dmrg, tfim2d_mpo, ttn_dmrg
+
+    for side, sweeps, bond, chain_sweeps, rtol in (
+            (4, cfg["sweeps"], cfg["chain_bond"], cfg["chain_sweeps"], cfg["rtol"]),
+            (cfg["big_side"], cfg["big_sweeps"], cfg["big_bond"], cfg["big_chain_sweeps"],
+             cfg["big_rtol"])):
+        mpo = tfim2d_mpo(side, side, h=cfg["h"], device=device)
+        marks, restore = _sweep_marks(device)
+        try:
+            (_, energies), secs = _timed(lambda: ttn_dmrg(
+                mpo, cfg["chi"], generator=_gen(device, cfg["seed"]), sweeps=sweeps), device)
+            end = time.perf_counter()
+        finally:
+            restore()
+        per_sweep = [b - a for a, b in zip(marks, marks[1:] + [end])]
+        n = side * side
+        mps0 = MPS.random(n, 2, 16, dtype=torch.float64, generator=_gen(device, cfg["seed"]),
+                          device=device)
+        (_, e_chain, _), chain_secs = _timed(lambda: dmrg(mpo, mps0, max_bond=bond,
+                                                          sweeps=chain_sweeps), device)
+        e_chain = float(e_chain)
+        rel = abs(energies[-1] - e_chain) / abs(e_chain)
+        log(f"  ttn_dmrg {side}x{side} snake TFIM h {cfg['h']}, chi {cfg['chi']}, {sweeps} "
+            f"sweeps: {energies[-1]!r} (sweeps {[f'{e:.10f}' for e in energies]}, "
+            f"{secs:.2f} s, each sweep {[round(t, 3) for t in per_sweep]} s, {smi}); chain "
+            f"dmrg bond {bond}, {chain_sweeps} sweeps: {e_chain!r} ({chain_secs:.2f} s); "
+            f"relative {rel:.3e} (tol {rtol})")
+        _check(f"ttn_dmrg {side}x{side} against the chain DMRG", rel, rtol)
+        if any(b > a + 1e-10 for a, b in zip(energies, energies[1:])):
+            raise AssertionError("ttn_dmrg sweep energies rose")
+
+
+def _dense_tfim(n, h):
+    import numpy as np
+
+    x, z = np.array([[0.0, 1.0], [1.0, 0.0]]), np.diag([1.0, -1.0])
+
+    def site(op, i):
+        return np.kron(np.kron(np.eye(2 ** i), op), np.eye(2 ** (n - i - 1)))
+
+    return (-sum(site(z, i) @ site(z, i + 1) for i in range(n - 1))
+            - h * sum(site(x, i) for i in range(n)))
+
+
+def ttn_adam_path(device, smi, cfg):
+    """ttn_ground_state from one start (drawn on the host): card against CPU
+    over the first Adam steps, then the full descent against ED."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import tfim_mpo, ttn_ground_state
+
+    def run(dev, steps):
+        return ttn_ground_state(tfim_mpo(cfg["n"], h=cfg["h"], device=dev), cfg["chi"],
+                                generator=torch.Generator().manual_seed(cfg["seed"]),
+                                steps=steps, lr=cfg["lr"])[1].cpu().numpy()
+
+    vals, secs = _on((device, torch.device("cpu")), lambda dev: run(dev, cfg["cpu_steps"]))
+    diff = float(np.abs(vals[device.type] - vals["cpu"]).max())
+    log(f"  ttn_ground_state n {cfg['n']}, chi {cfg['chi']}, first {cfg['cpu_steps']} Adam "
+        f"steps: card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s; max |card - CPU| "
+        f"{diff:.3e} (tol {TOL_CARD_VS_CPU})")
+    _check("TTN Adam energies, card against CPU", diff, TOL_CARD_VS_CPU)
+    energies, secs = _timed(lambda: run(device, cfg["steps"]), device)
+    e0 = float(np.linalg.eigvalsh(_dense_tfim(cfg["n"], cfg["h"]))[0])
+    err = float(energies[-1]) - e0
+    log(f"  the full descent, {cfg['steps']} steps: {float(energies[-1])!r}, ED {e0!r}, above by "
+        f"{err:.3e} (the JAX test's window (-1e-9, {cfg['tol']})); {secs:.2f} s, "
+        f"{1e3 * secs / cfg['steps']:.2f} ms a step ({smi})")
+    if not -1e-9 < err < cfg["tol"]:
+        raise AssertionError("TTN Adam ground state outside the JAX test's window")
+
+
+def ttn_tdvp_path(device, smi, cfg):
+    """Real-time TTN-TDVP on the saturated manifold against dense
+    exponentiation (exact, global phase included)."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import random_ttn, tfim_mpo, ttn_tdvp_evolve, ttn_to_dense
+
+    n, dt, steps = cfg["n"], cfg["dt"], cfg["steps"]
+    params = random_ttn(n, 2, cfg["chi"], generator=_gen(device, cfg["seed"]))
+    v0 = ttn_to_dense(params).cpu().numpy()
+    (params, values), secs = _timed(lambda: ttn_tdvp_evolve(
+        tfim_mpo(n, h=cfg["h"], device=device), params, dt, steps), device)
+    w, u = np.linalg.eigh(_dense_tfim(n, cfg["h"]))
+    want = u @ (np.exp(-1j * w * dt * steps) * (u.conj().T @ v0))
+    err = float(np.linalg.norm(ttn_to_dense(params).cpu().numpy() - want))
+    log(f"  ttn_tdvp_evolve n {n}, chi {cfg['chi']}, dt {dt}, {steps} real-time steps: "
+        f"|psi - exp(-i t H) psi0| {err:.3e} (tol {cfg['tol']}); energy drift "
+        f"{abs(values[-1] - values[0]):.3e}; {secs:.2f} s, {secs / steps:.3f} s a step ({smi})")
+    _check("TTN-TDVP against dense exponentiation", err, cfg["tol"])
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -3748,6 +4120,14 @@ def peps_phase(device, smi):
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
 
+def three_d_phase(device, smi):
+    log("== 13. the 3D family and tree tensor networks")
+    t13 = time.perf_counter()
+    for path, (counts, secs) in three_d_ttn_paths(device, smi).items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
+
 def main():
     if not (ROOT / "contractn_tpu_torch" / "__init__.py").is_file():
         fail(f"no contractn_tpu_torch package beside {Path(__file__).name}; "
@@ -3761,7 +4141,7 @@ def main():
     phase_build()
     kernel_smem(device)
     only = {"--physics-only": physics_phase, "--infinite-only": infinite_phase,
-            "--2d-only": two_d_phase, "--peps-only": peps_phase}
+            "--2d-only": two_d_phase, "--peps-only": peps_phase, "--3d-only": three_d_phase}
     if len(sys.argv) == 2 and sys.argv[1] in only:  # phases 1, 2 and one more alone
         only[sys.argv[1]](device, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -3802,6 +4182,7 @@ def main():
     infinite_phase(device, smi)
     two_d_phase(device, smi)
     peps_phase(device, smi)
+    three_d_phase(device, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

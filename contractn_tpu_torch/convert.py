@@ -8,7 +8,9 @@ GPU unless ``device="cpu"``), with the same dtype and values.
 ``mps_to_numpy`` / ``mpo_to_numpy`` / ``ground_to_numpy`` go the other way, so
 parameters trained here can be held against the JAX package.  The states the
 2D and finite-temperature modules return (a thermal state dict, MERA
-``params``, an IBC window: dicts, lists and tuples of arrays) cross with
+``params``, an IBC window), the 3D simple update's ``(gamma, lam)``, the 3D
+thermal state ``(ga, gb, lams)`` and TTN ``params`` (``{"levels": [...],
+"top": ...}``) — dicts, lists and tuples of arrays — cross with
 ``state_from_numpy`` / ``state_to_numpy``.  The tests use them so that both
 packages compute on identical data.
 """

@@ -17,12 +17,13 @@ from .scan import (
     mps_norm,
     scan_matrix_chain,
 )
-from .stabilize import MIN_NORM, destabilize, stabilize, stabilize_batched
+from .stabilize import MIN_NORM, destabilize, dot_precision, stabilize, stabilize_batched
 
 __all__ = [
     "MIN_NORM",
     "cuda_mps_evaluate",
     "destabilize",
+    "dot_precision",
     "epilogue_chain",
     "lanczos_basis",
     "lanczos_ground",

@@ -16,7 +16,8 @@ enables TF32 (``torch.backends.cuda.matmul.allow_tf32``,
 ``tests/test_torch_graph.py`` checks the source for it.  bfloat16 runs only
 where the caller passes bfloat16 tensors.  :func:`dot_precision` and
 :func:`peinsum` are the counterparts of the JAX package's: the precision a
-contraction needs, and an einsum that refuses to run below it.
+contraction needs, and an einsum that refuses to run below it;
+:func:`pmatmul` is the same check around ``torch.matmul``.
 """
 
 import torch
@@ -41,6 +42,15 @@ def dot_precision(*dtypes):
     return None
 
 
+def _check_precision(*dtypes):
+    if dot_precision(*dtypes) and torch.get_float32_matmul_precision() != "highest":
+        raise TNError(
+            "float32 matmul precision is lowered (TF32 is enabled); this "
+            "package computes float32 as IEEE float32: call "
+            "torch.set_float32_matmul_precision('highest')"
+        )
+
+
 def peinsum(subscripts, *operands):
     """``torch.einsum`` with the package's precision invariant and the JAX
     package's dtype promotion.
@@ -54,13 +64,17 @@ def peinsum(subscripts, *operands):
     dtype = operands[0].dtype
     for op in operands[1:]:
         dtype = torch.promote_types(dtype, op.dtype)
-    if dot_precision(dtype) and torch.get_float32_matmul_precision() != "highest":
-        raise TNError(
-            "float32 matmul precision is lowered (TF32 is enabled); this "
-            "package computes float32 as IEEE float32: call "
-            "torch.set_float32_matmul_precision('highest')"
-        )
+    _check_precision(dtype)
     return torch.einsum(subscripts, *(op.to(dtype) for op in operands))
+
+
+def pmatmul(a, b):
+    """``torch.matmul`` under :func:`peinsum`'s precision check: float32,
+    float64 and complex products refuse to run while TF32 is enabled.  For
+    the large explicit GEMM chains (the 3D HOTRG merge) whose order must not
+    be left to an einsum."""
+    _check_precision(a.dtype, b.dtype)
+    return torch.matmul(a, b)
 
 
 def path_einsum(subscripts, *operands):

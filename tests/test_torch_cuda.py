@@ -183,6 +183,14 @@ def test_peps2d_paths_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_three_d_paths_on_gpu(cuda_device):
+    # phase 13 at its rehearsal size: every check (card against CPU where the
+    # phase compares them, the 3D merge's GEMM chain), no hand kernel
+    runs = chip_smoke.three_d_ttn_paths(cuda_device, "test", chip_smoke.THREE_D_TINY)
+    assert all(not any(counts.values()) for counts, _ in runs.values())
+
+
+@pytest.mark.cuda
 def test_contract_gradient_lands_on_the_operand_device(cuda_device):
     import contractn_tpu_torch as ttn
 
