@@ -45,19 +45,19 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    ``TN.compile(...).measure_compile()``); a random 3-regular network on the
    native greedy path against the oracle; ``bp_contract`` on a 20,000-spin
    3-regular Ising model against its closed-form Bethe free energy (float64
-   and float32); 5 imaginary-time TFIM simple-update layers on a 16 x 16
+   and float32); imaginary-time TFIM simple-update layers on a 16 x 16
    grid, card against CPU in float64, and the 3 x 3 anchor against exact
    diagonalization; ``bp_ground_state`` on a 32-site TFIM ring, card against
    CPU in float64; the chain's plan items must equal the JAX package's;
 8. finite chains (``CHAINS``): two-site DMRG of the 100-site spin-1
-   Heisenberg chain built through ``OpSum`` (bond 128, 3 sweeps, float64;
+   Heisenberg chain built through ``OpSum`` (bond 128, float64;
    the time of each sweep and its split between local solves, SVD splits and
    environment updates; the energy against ITensors.jl's published value),
    its ground state served on 4096 sampled configurations through
    ``MPS.evaluate`` under ``torch.no_grad()`` (#1, exactly one launch, held
    against the plain version); DMRG of the critical 100-site TFIM at bond 64
-   against the free-fermion energy; ``dmrg_ensemble`` over 64 TFIM chains of
-   32 sites in one batched call, each against free fermions;
+   against the free-fermion energy; ``dmrg_ensemble`` over 64 TFIM chains in
+   one batched call, each against free fermions;
    ``tdvp1_evolve`` of the TFIM ground state under a field quench in
    complex128 (norm and energy conserved); ``itebd_ground_state`` at bond 32
    against -4/pi; an ``OpSum`` Heisenberg MPO against ``heisenberg_mpo``;
@@ -133,11 +133,25 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    ``ttn_ground_state`` card against CPU and against ED, and
    ``ttn_tdvp_evolve`` against dense exponentiation.  No path may launch a
    hand kernel.
+14. the parallel layer (``PARALLEL``) in a world of one rank over NCCL,
+   initialized and destroyed inside the phase, on meshes whose every axis
+   has size 1: ``sharded_mps_forward`` at one rank's share of the flagship
+   on the dp 4 x sp 2 layout (500 sites x d 2 x bond 64 x batch 1024, fp32;
+   its time and peak device memory) in split format against
+   ``MPS.evaluate`` (#1, the one launch of the phase); the sharded,
+   tensor-parallel and pipelined SGD steps at ``TRAIN`` (3 steps each, the
+   first update against ``make_train_step``'s); ``fit_born_machine_sharded``
+   at ``BORN`` against ``fit_born_machine``; ``dmrg_uniform_tp`` and
+   ``dmrg_realspace`` on the TFIM chain at bond 64 against ``dmrg_uniform``
+   (and the tp DMRG at 8 sites against the CPU); ``dmrg_ensemble_sharded``,
+   ``ipeps_cell_scan_sharded`` and ``cv_greens_function_sharded`` against
+   their batched single-device paths.
 
 The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  ``--physics-only``
-(``--infinite-only``, ``--2d-only``, ``--peps-only``, ``--3d-only``) runs
-phases 1, 2 and 9 (10, 11, 12, 13) alone and prints neither.  Without a GPU, or without the
+(``--infinite-only``, ``--2d-only``, ``--peps-only``, ``--3d-only``,
+``--parallel-only``) runs phases 1, 2 and 9 (10, 11, 12, 13, 14) alone and
+prints neither.  Without a GPU, or without the
 package beside this file, it exits nonzero and prints no result.
 """
 
@@ -200,17 +214,19 @@ FIT_TN_STEPS = 60
 # np.einsum to a few seconds.
 # ISING: the Ising model on a random 3-regular multigraph at beta 0.2, whose
 # Bethe free energy is known in closed form.  GRID: imaginary-time TFIM
-# simple update on an open grid (3 layers, 5 until phase 12); ANCHOR: the
-# same on 3 x 3 against exact diagonalization.  RING: bp_ground_state on a
+# simple update on an open grid (2 layers, 3 until phase 14, 5 until phase
+# 12); ANCHOR: the
+# same on 3 x 3 against exact diagonalization (6 layers a step size, 15
+# until phase 14: 8.4e-5 from exact on the card against the 1e-2 limit).  RING: bp_ground_state on a
 # TFIM ring.
 GRAPH = {
     "lowering": {"n_mats": 4096, "dims": (48, 64), "block": 12, "reps": 2,
                  "jax_plan_items": 1047},
     "native": {"n_nodes": 64, "degree": 3, "bond": 4, "seed": 7},
     "ising": {"n_spins": 20000, "beta": 0.2, "timed_sweeps": 10},
-    "grid": {"side": 16, "h": 3.0, "tau": 0.05, "layers": 3, "max_bond": 8},
+    "grid": {"side": 16, "h": 3.0, "tau": 0.05, "layers": 2, "max_bond": 8},
     "anchor": {"side": 3, "h": 3.0, "taus": (0.2, 0.1, 0.05, 0.02),
-               "layers": 15, "max_bond": 4},
+               "layers": 6, "max_bond": 4},
     "ring": {"n_sites": 32, "h": 2.0, "bond": 8, "steps": 50, "n_sweeps": 10,
              "lr": 0.02},
 }
@@ -223,7 +239,8 @@ GRAPH = {
 # free-fermion energy (3 sweeps, 5 until phase 13: on the CPU the second
 # sweep lands 6e-9 to 2e-8 from it, the third 2e-15).  ENSEMBLE: 64 TFIM chains over a field scan in one
 # batched search (2 sweeps, 3 until phase 13, 4 until phase 11: on the CPU
-# the worst member is 3.7e-9 from free fermions after two).  QUENCH: single-site TDVP
+# the worst member is 3.7e-9 from free fermions after two; 24 sites, 32 until
+# phase 14, when the search took 22.1-23.3 s).  QUENCH: single-site TDVP
 # from the TFIM ground state (h 1 -> 0.5) in complex128, 1 step (2 until
 # phase 13, 3 until phase 12, 6 until phase 11; at 10, 64.2 s, with LINDBLAD at 10 too, the
 # whole script took 767.1 s on an H100, over its 750 s budget, PERF.md §6).
@@ -235,7 +252,7 @@ CHAINS = {
               "published": -138.94, "published_tol": 0.01, "seed": 3},
     "tfim": {"n_sites": 100, "h": 1.0, "bond": 64, "sweeps": 3, "rtol": 1e-8,
              "seed": 4},
-    "ensemble": {"n_members": 64, "h": (0.5, 1.5), "n_sites": 32, "bond": 32,
+    "ensemble": {"n_members": 64, "h": (0.5, 1.5), "n_sites": 24, "bond": 32,
                  "sweeps": 2, "rtol": 1e-7, "seed": 5},
     "quench": {"h": 0.5, "dt": 0.05, "steps": 1, "drift_tol": 1e-7,
                "norm_tol": 1e-10},
@@ -253,17 +270,20 @@ CHAINS = {
 # closed form of its Riemann sum, and the QFT of its 16-bit samples against
 # numpy.fft.  DENSE: the 20-bit quantics MPS evaluated on every grid point
 # through #1.  LINDBLAD: the dephased XXZ chain by W^II, card against CPU,
-# 2 steps (not 20; at 10 the card and CPU runs took 79.7 s, and the script
-# went over its budget, see QUENCH above; 4 until phase 12, 6 until phase
-# 11).  The trace
+# 1 step (not 20; at 10 the card and CPU runs took 79.7 s, and the script
+# went over its budget, see QUENCH above; 2 until phase 14, when the two
+# steps took 3.5 s on the card and 12.2 s on the CPU; 4 until phase 12, 6
+# until phase 11).  The trace
 # is an overlap with vec(I), whose norm is 2^(n/2): a 2-norm rounding of
 # rho of relative size e moves it by up to e 2^(n/2) ||rho|| (about 2e-11 a
 # step at 20 sites on the card, growing with the bond, while the discarded
 # weight stays below 1e-12), so its tolerance is scaled by that condition
 # number, as the kernels' agreement is.
 # CV: the batched correction-vector grid on a 32-site Heisenberg ground
-# state, card against CPU at every 16th frequency (every 8th until phase
-# 13; each frequency is an
+# state (found in 2 DMRG sweeps, 4 until phase 14, when they took 7.0 s; card
+# and CPU start from the same one), card against CPU at one of the 32
+# frequencies, the middle one, omega = 1.55, inside the spectrum (every 16th
+# until phase 14, every 8th until phase 13; each frequency is an
 # independent member of the batch; the CPU takes 77 s for all 32 at CG 16;
 # CG 24 per solve, 32 until phase 12, 64 until phase 11; one sweep, two
 # until phase 12).
@@ -274,8 +294,9 @@ CHAINS = {
 # must agree with the CPU to 1e-8 or to ten times that spread, measured in
 # the same run.  MCWF: a trajectory ensemble of the damped TFIM, card
 # against CPU on the same host draws; 32 trajectories, not 64 (64 took 55 s
-# on the card and 31 s on the CPU), 2 steps of 0.1 (6 until phase 12, 10
-# until phase 11, when the path took 58.8 s).  The bond cap 16 binds (bond 64 moves a
+# on the card and 31 s on the CPU), 1 step of 0.1 (2 until phase 14, when
+# the path took 17.9 s; 6 until phase 12, 10 until phase 11, when it took
+# 58.8 s).  The bond cap 16 binds (bond 64 moves a
 # trajectory's record by 3e-5), so the truncated result is determined only
 # as far as near-degenerate singular values at the cut allow: the card must
 # agree with the CPU to 1e-10 or to ten times the CPU's own spread under a
@@ -290,12 +311,12 @@ PHYSICS = {
     "tci": {"n_bits": 40, "freq": 50.0, "max_bond": 16, "tol": 1e-10, "rtol": 1e-9,
             "qft_bits": 16, "qft_tol": 1e-10},
     "dense": {"n_bits": 20, "freq": 50.0, "tol": 1e-5},
-    "lindblad": {"n_sites": 20, "steps": 2, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
+    "lindblad": {"n_sites": 20, "steps": 1, "dt": 0.01, "jz": 0.5, "gamma": 0.3,
                  "max_bond": 64, "trace_tol": 1e-10, "tol": 1e-10},
-    "cv": {"n_sites": 32, "bond": 32, "dmrg_sweeps": 4, "n_omegas": 32,
+    "cv": {"n_sites": 32, "bond": 32, "dmrg_sweeps": 2, "n_omegas": 32,
            "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 1, "cg_iters": 24,
-           "cpu_every": 16, "tol": 1e-8, "seed": 22},
-    "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 2, "t": 0.2, "h": 1.0,
+           "cpu_at": (16,), "tol": 1e-8, "seed": 22},
+    "mcwf": {"n_sites": 16, "n_traj": 32, "steps": 1, "t": 0.1, "h": 1.0,
              "gamma": 0.2, "max_bond": 16, "tol": 1e-10, "seed": 23},
 }
 # The same paths at a size the CPU rehearses in seconds
@@ -313,7 +334,7 @@ PHYSICS_TINY = {
                  "max_bond": 16, "trace_tol": 1e-10, "tol": 1e-10},
     "cv": {"n_sites": 6, "bond": 4, "dmrg_sweeps": 2, "n_omegas": 3,
            "omegas": (0.0, 3.0), "eta": 0.1, "sweeps": 1, "cg_iters": 4,
-           "cpu_every": 2, "tol": 1e-8, "seed": 22},
+           "cpu_at": (0, 2), "tol": 1e-8, "seed": 22},
     "mcwf": {"n_sites": 4, "n_traj": 3, "steps": 3, "t": 0.3, "h": 1.0,
              "gamma": 0.2, "max_bond": 4, "tol": 1e-10, "seed": 23},
 }
@@ -395,11 +416,11 @@ INFINITE_TINY = {
 # need 2.0 GB each and chi^7 = 5.9e11 operations a merge), against the
 # closed form; ising_internal_energy_ad at beta 0.4, chi 24, against
 # Onsager's internal energy.  MERA: the critical TFIM at chi 4 from a numpy
-# start (mera_start), swept as far as the budget allows (150 sweeps, 300
-# until phase 13, 1000 until phase 12), against -4/pi and the Ising sigma
+# start (mera_start), swept as far as the budget allows (75 sweeps, 150
+# until phase 14, 300 until phase 13, 1000 until phase 12), against -4/pi and the Ising sigma
 # dimension 1/8, and held to the JAX package's energy and sigma dimension
 # after the same sweeps from the same start (e_ref, dim_ref:
-# scripts/mera_reference.py 150 4 0, 6.5 s on a development CPU); then expand_mera to chi 6, the
+# scripts/mera_reference.py 75 4 0, 4.9 s on a development CPU); then expand_mera to chi 6, the
 # same state to 1e-8, and a few sweeps there.  THERMAL: thermal_itebd of the
 # critical TFIM at bond 64, beta 2, dbeta 0.01 (0.005 until phase 13),
 # energy and ln Z against tfim_exact_thermal (the energy is second order in
@@ -424,8 +445,8 @@ TWO_D = {
     "trg": {"beta": 0.4, "chi": 64, "steps": 12, "tol": 1e-7},
     "hotrg": {"chi": 32, "steps": 30, "tol": 1e-7, "ad_beta": 0.4, "ad_chi": 24,
               "ad_steps": 24, "ad_tol": 1e-4},
-    "mera": {"chi": 4, "sweeps": 150, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
-             "e_ref": -1.1876674635329412, "dim_ref": 1.2022168246527503, "ref_tol": 1e-8,
+    "mera": {"chi": 4, "sweeps": 75, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
+             "e_ref": -1.1686341287681872, "dim_ref": 1.2165372767921243, "ref_tol": 1e-8,
              "seed": 0},
     "thermal": {"beta": 2.0, "bond": 64, "dbeta": 0.01, "e_tol": 1e-5, "lz_tol": 1e-3,
                 "wii_dbeta": 0.02, "wii_tol": 3e-4},
@@ -471,10 +492,12 @@ TWO_D_TINY = {
 # beta - 2 beta).  CELL_SU: the unrotated Heisenberg model by the
 # checkerboard simple update, the JAX test's D 2, chi 12 (250 sweeps, not
 # its 500; CTMRG 40 iterations, not 120) card against CPU, then D 3 (200
-# sweeps, not 500), chi 36 (20 iterations, not 150; energy and moments in
+# sweeps, not 500), chi 36 (10 iterations, 20 until phase 14, not 150; the
+# energy unchanged to every printed digit on the card; energy and moments in
 # one environment) below it and above QMC's -0.669437, the staggered moment
 # equal on every site and alternating.  SCAN: 16 TFIM fields over h 2-4 at
-# D 2, chi 16 (20 iterations, not 120) in one batched call, ordered below h
+# D 2, chi 16 (10 iterations, 20 until phase 14, not 120) in one batched
+# call, ordered below h
 # 2.95 and paramagnetic above 3.3 (the D 2 simple update stays ordered up
 # to about 3.3, above the exact h_c 3.04: the fields between are printed),
 # the last member against the unbatched call (two until phase 13).  FULL_UPDATE: the Heisenberg
@@ -490,9 +513,11 @@ TWO_D_TINY = {
 # fpeps_energy on a random 3x3 BdG state against Fock ED; fpeps_ground_state
 # on the 2x3 BdG lattice within 1.5% of ED (100 steps, not the JAX test's
 # 120); fipeps_ground_state of the p-wave model within 1% of the BdG
-# integral (60 steps, not 200, of 2 and 2 iterations, not 8 and 4); the
-# checkerboard Hubbard AFM at U 8 (20 steps, not the JAX test's 35, of 2
-# and 2 iterations, not 8 and 4).  SAMPLING: 4096 samples of a random positive 6x6 D 2 PEPS at chi 8
+# integral (50 steps, 60 until phase 14, not 200, of 2 and 2 iterations,
+# not 8 and 4; 6.9e-3 above it after 50 on the card); the checkerboard Hubbard AFM at U 8
+# (10 steps, 20 until phase 14, not the JAX test's 35, of 2 and 2
+# iterations, not 8 and 4; after 10 on the card E + U/2 -0.131, filling
+# 1.002, staggered n_up 0.994).  SAMPLING: 4096 samples of a random positive 6x6 D 2 PEPS at chi 8
 # against its marginals (by projected norms) and peps_log_prob; the GHZ Born
 # machine (100 steps, not 250); VMC of the 2x2 TFIM: its estimators over
 # every configuration equal the dense Rayleigh quotient, and 100 sampled
@@ -503,11 +528,11 @@ PEPS2D = {
     "cell_ctmrg": {"beta": 0.5, "eps": 1e-4, "chi": 64, "iters": 40, "mag_tol": 2e-4,
                    "xi_beta": 0.3, "xi_chi": 64, "xi_iters": 50, "xi_tol": 0.02,
                    "cpu_chi": 16, "cpu_iters": 60, "cpu_tol": 1e-10},
-    "cell_su": {"bond": 3, "chi": 36, "iters": 20, "schedule": ((0.1, 100), (0.02, 100)),
+    "cell_su": {"bond": 3, "chi": 36, "iters": 10, "schedule": ((0.1, 100), (0.02, 100)),
                 "mom_tol": 1e-6, "moment": (0.25, 0.5), "cpu_bond": 2, "cpu_chi": 12,
                 "cpu_iters": 40, "cpu_schedule": ((0.1, 100), (0.02, 100), (0.005, 50)),
                 "cpu_tol": 1e-8},
-    "scan": {"n": 16, "h": (2.0, 4.0), "bond": 2, "chi": 16, "iters": 20, "h_c": 3.04,
+    "scan": {"n": 16, "h": (2.0, 4.0), "bond": 2, "chi": 16, "iters": 10, "h_c": 3.04,
              "schedule": ((0.1, 150), (0.02, 150), (0.005, 80)), "ordered_below": 2.95,
              "ordered": 0.3, "para_above": 3.3, "para": 1e-3, "members": (15,),
              "tol": 1e-10},
@@ -525,10 +550,10 @@ PEPS2D = {
         "bdg": {"ly": 3, "lx": 3, "seed": 2, "t": 1.0, "mu": 0.3, "delta": 0.6, "tol": 1e-12},
         "fpeps": {"ly": 2, "lx": 3, "t": 1.0, "mu": 1.0, "delta": 0.6, "chi": 12,
                   "steps": 100, "lr": 3e-2, "tol": 0.015},
-        "fipeps": {"t": 1.0, "mu": -4.4, "delta": 1.0, "chi": 12, "steps": 60, "lr": 2e-2,
+        "fipeps": {"t": 1.0, "mu": -4.4, "delta": 1.0, "chi": 12, "steps": 50, "lr": 2e-2,
                    "refresh_iters": 2, "grad_iters": 2, "env_iters": 60,
                    "tol": 1e-2, "readme": "0.4%"},
-        "hubbard": {"u": 8.0, "chi": 12, "steps": 20, "lr": 1e-2, "refresh_iters": 2,
+        "hubbard": {"u": 8.0, "chi": 12, "steps": 10, "lr": 1e-2, "refresh_iters": 2,
                     "grad_iters": 2, "env_iters": 60, "fill_tol": 0.05, "stagger": 0.6},
     },
     "sampling": {"rows": 6, "cols": 6, "bond": 2, "chi": 8, "n": 4096, "seed": 41,
@@ -588,7 +613,8 @@ PEPS2D_TINY = {
 # 4), so it is held at 1.5e-3, not 1e-5 (PERF.md §6).  ADAM:
 # ttn_ground_state of the 8-site TFIM (chi 16) card against CPU over its
 # first 50 steps, then 2000 steps (not the JAX test's 3000: 4.7e-5 above ED
-# against its 1e-4) against ED.  TDVP: ttn_tdvp_evolve (chi 16, dt 0.05, the
+# against its 1e-4; 1500 steps, whose cosine schedule decays sooner, ended
+# 9.3e-5 above it on the card) against ED.  TDVP: ttn_tdvp_evolve (chi 16, dt 0.05, the
 # JAX test's 8 real-time steps) against dense exponentiation.
 THREE_D = {
     "flow": {"beta": 0.2, "chi": 12, "steps": 10, "big_chi": 16, "big_steps": 3},
@@ -622,6 +648,62 @@ THREE_D_TINY = {
             "big_chain_sweeps": 2, "big_rtol": 1.0},
     "adam": {**THREE_D["adam"], "chi": 4, "steps": 20, "cpu_steps": 5, "tol": 10.0},
     "tdvp": {**THREE_D["tdvp"], "steps": 1},
+}
+# The parallel layer (phase 14), in a world of one rank over NCCL (a second
+# rank on one GPU is a duplicate GPU to NCCL), every mesh axis of size 1,
+# within 30 s of the card's time.  FORWARD: one rank's share of the flagship
+# on the JAX package's dp 4 x sp 2 layout (README): 500 sites, batch 1024; its
+# (B, N, D, D) site matrices take 8.4 GB.  TRAIN and BORN: the published
+# widths of phase 6; TRAIN's tolerance holds the update on the well-
+# conditioned samples (see par_train_path; the first card runs measured
+# 9.6e-5, 4.0e-4 and 8.8e-5 there for the sharded, tp and pipelined steps, and
+# 5.7e-5 for make_train_step's own float32 update against its float64 one),
+# BORN is held in float64 (par_born_path): the first update and the first 3
+# losses to 1e-10 of the largest (in float32 the two Adams part by 6.6e-3 of
+# the largest loss on the card, a third of its whole fall over the 10 steps,
+# and in float64 by 5.6e-4 after 10 steps, Adam's trajectory being chaotic
+# at these widths; the losses 0-2 part by 0, 0 and 3.0e-14 on a CPU).  The
+# DMRG paths
+# keep the widths of phases 8-12 and cut depth: TFIM bond 64
+# (CHAINS["tfim"]) at 16 sites, not 100, 1 sweep, not 3, Lanczos 20, not 40
+# (at 32 sites, 2 sweeps and Lanczos 40 the tp DMRG took 13.1 s and
+# dmrg_uniform 6.1 s); the ensemble's 64 members at bond 32
+# (CHAINS["ensemble"]) at 8 sites, not 24, and 1 sweep, not 2 (12 sites took
+# 3.1 s a call); the 16 scan fields at D 2, chi 16 (PEPS2D["scan"]) with 5
+# simple-update steps, not 380, and 1 CTMRG iteration, not 20 (20 and 2 took
+# 5.0 s a call); the 32-frequency correction-vector grid at bond 32
+# (PHYSICS["cv"]) on an 8-site chain, not 32.  Each is held against its
+# single-device counterpart on the card; the real-space DMRG against the free
+# fermions, both its last parallel iteration before the serial polish (to
+# 1e-6: the card read 5.1e-8 there, and a single dmrg_uniform sweep alone
+# reaches 1e-12, so the final energy does not witness the parallel sweeps)
+# and its final energy; the tp DMRG also at 8 sites against the CPU.
+PARALLEL = {
+    "forward": {"n_sites": 500, "phys": 2, "bond": 64, "batch": 1024, "check": 64,
+                "seed": 61},
+    "train": {**TRAIN, "seed": 62, "tol": 1e-3},
+    "born": {**BORN, "seed": 63, "held": 3, "tol": 1e-10},
+    "tp_dmrg": {"n_sites": 16, "h": 1.0, "bond": 64, "sweeps": 1, "iters": 20,
+                "tol": 1e-10, "seed": 64, "cpu_sites": 8, "cpu_bond": 8},
+    "rs_dmrg": {"outer": 2, "final": 1, "tol": 1e-8, "parallel_tol": 1e-6},
+    "ensemble": {**CHAINS["ensemble"], "n_sites": 8, "sweeps": 1, "tol": 1e-12},
+    "scan": {**PEPS2D["scan"], "schedule": ((0.1, 5),), "iters": 1, "tol": 1e-10},
+    "cv": {**PHYSICS["cv"], "n_sites": 8, "tol": 1e-10},
+}
+# The same paths at a size the CPU rehearses in seconds
+# (tests/test_torch_parallel.py) and the card tests run.
+PARALLEL_TINY = {
+    "forward": {"n_sites": 12, "phys": 2, "bond": 8, "batch": 16, "check": 8, "seed": 61},
+    "train": {"n_sites": 12, "phys": 2, "bond": 8, "batch": 16, "steps": 2, "lr": 1e-3,
+              "seed": 62, "tol": 1e-3},
+    "born": {"n_sites": 6, "bond": 4, "batch": 64, "steps": 3, "lr": 1e-2, "seed": 63,
+             "held": 3, "tol": 1e-10},
+    "tp_dmrg": {**PARALLEL["tp_dmrg"], "n_sites": 6, "bond": 8, "sweeps": 2, "iters": 20,
+                "cpu_sites": 4, "cpu_bond": 4},
+    "rs_dmrg": PARALLEL["rs_dmrg"],
+    "ensemble": {**PARALLEL["ensemble"], "n_members": 3, "n_sites": 6, "bond": 4},
+    "scan": {**PARALLEL["scan"], "n": 2, "chi": 4, "schedule": ((0.1, 5),), "iters": 2},
+    "cv": {**PARALLEL["cv"], "n_sites": 6, "bond": 4, "n_omegas": 4},
 }
 TOL_LOWERING_LOG = 1e-5  # relative, float32 chain against the float64 oracle
 TOL_BETHE = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative, ln Z
@@ -2307,7 +2389,7 @@ def cv_path(device, smi, cfg):
     finally:
         dynamical._split_theta = real_split
     cpu = torch.device("cpu")
-    sub = slice(None, None, cfg["cpu_every"])
+    sub = list(cfg["cpu_at"])
     h_cpu = heisenberg_mpo(n, device=cpu)
     ground_cpu = MPS(ground.cores.to(cpu), ground.left.to(cpu), ground.right.to(cpu))
     t0 = time.perf_counter()
@@ -4013,6 +4095,383 @@ def ttn_tdvp_path(device, smi, cfg):
     _check("TTN-TDVP against dense exponentiation", err, cfg["tol"])
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+class PathRuns(dict):
+    """``{path: (counts, seconds)}``.  ``runs(name, fn)`` drives one path: every
+    launch count zeroed just before it and read just after, host-clock seconds
+    ending in a synchronize; returns ``fn()``."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def __call__(self, name, fn):
+        reset_counters()
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        self[name] = (read_counters(), time.perf_counter() - t0)
+        return out
+
+    def secs(self, name):
+        return self[name][1]
+
+
+def parallel_phase(device, smi, sizes=PARALLEL):
+    """Phase 14: the parallel layer in a world of one rank, initialized here
+    and destroyed at the end, over NCCL on the card and gloo for the CPU
+    rehearsal (the backend follows ``device``); returns ``{path: (counts,
+    seconds)}``."""
+    import socket
+
+    import torch.distributed as dist
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    log(f"== 14. the parallel layer, one rank over {backend}")
+    t14 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index or 0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        t_init = time.perf_counter() - t14
+        _, t_first = _timed(lambda: dist.all_reduce(torch.zeros(1, device=device)), device)
+        log(f"  init_process_group({backend!r}, world size 1): {t_init:.2f} s; the first "
+            f"collective (the communicator's set-up): {t_first:.2f} s")
+        runs = parallel_paths(device, smi, sizes)
+    finally:
+        dist.destroy_process_group()
+    for path, (counts, secs) in runs.items():
+        log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    return runs
+
+
+def parallel_paths(device, smi, sizes=PARALLEL):
+    """The parallel layer's entry points on meshes whose every axis has size
+    1, each against its single-device counterpart; returns ``{path: (counts,
+    seconds)}``.  Only the single-device evaluation that the sharded forward
+    is held against may launch a hand kernel (#1, once): the sharded paths go
+    through the tree product, the scans and the Krylov core, as the JAX
+    package's do."""
+    from contractn_tpu_torch.parallel import make_mesh
+
+    runs = PathRuns(device)
+    meshes = {axes: make_mesh(dict.fromkeys(axes, 1), device=device.type)
+              for axes in (("dp", "sp"), ("dp", "sp", "tp"), ("pp",), ("tp",), ("sp",),
+                           ("dp",))}
+    par_forward_path(device, smi, sizes["forward"], runs, meshes)
+    par_train_path(device, smi, sizes["train"], runs, meshes)
+    par_born_path(device, smi, sizes["born"], runs, meshes)
+    par_dmrg_path(device, smi, sizes["tp_dmrg"], sizes["rs_dmrg"], runs, meshes)
+    par_ensemble_path(device, smi, sizes["ensemble"], runs, meshes)
+    par_scan_path(device, smi, sizes["scan"], runs, meshes)
+    par_cv_path(device, smi, sizes["cv"], runs, meshes)
+    for path, (counts, _) in runs.items():
+        want = int(path == "forward_reference" and device.type == "cuda")
+        if counts["mps_evaluate"] != want or any(
+                v for k, v in counts.items() if k != "mps_evaluate"):
+            raise AssertionError(f"path {path}: launches {counts}")
+    return dict(runs)
+
+
+def _max_rel(got, want):
+    """max |got - want| / max |want|, in float64 on the host."""
+    import numpy as np
+
+    got, want = (np.asarray(t.detach().cpu().double() if isinstance(t, torch.Tensor) else t)
+                 for t in (got, want))
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def par_forward_path(device, smi, cfg, runs, meshes):
+    """``sharded_mps_forward`` at one rank's share of the flagship, held in
+    split format against ``MPS.evaluate`` (#1) on the same inputs."""
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.parallel import sharded_mps_forward
+
+    cores, left, right, x = mps_inputs(cfg, device, torch.float32, seed=cfg["seed"])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    amp, lg = runs("sharded_forward", lambda: sharded_mps_forward(
+        meshes[("dp", "sp")], cores, left, right, x))
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else 0.0
+    ref = runs("forward_reference",
+               lambda: _no_grad(lambda: MPS(cores, left, right).evaluate(x)))
+    if not (amp.shape == (cfg["batch"],) and bool(torch.isfinite(amp).all()
+                                                 and torch.isfinite(lg).all())):
+        raise AssertionError("sharded_mps_forward: not finite, or the wrong shape")
+    k = cfg["check"]
+    compare_split((amp[:k], lg[:k]), (ref[0][:k], ref[1][:k]), TOL_F32,
+                  "sharded_mps_forward vs MPS.evaluate (#1)",
+                  mps_condition(cores, left, right, x[:k]))
+    log(f"  sharded_mps_forward {cfg['n_sites']} sites x d {cfg['phys']} x bond "
+        f"{cfg['bond']} x batch {cfg['batch']}, fp32, dp 1 x sp 1: "
+        f"{runs.secs('sharded_forward'):.3f} s, peak device memory {peak:.2f} GB; "
+        f"MPS.evaluate (#1) {runs.secs('forward_reference'):.3f} s ({smi})")
+
+
+def par_train_path(device, smi, cfg, runs, meshes):
+    """The sharded, tensor-parallel and pipelined SGD steps, 3 steps each on
+    the full batch, timed; each also takes one step on the batch's
+    well-conditioned samples, held against ``make_train_step``'s.
+
+    The full batch's gradient is dominated by its worst-conditioned samples
+    (1/psi), which float32 does not determine (``grad_check``): there two
+    float32 implementations that reduce in different orders part by what
+    float32 leaves open, and their distance is printed, not held.  On the
+    samples with ``TOL_F32 x cond <= 1`` the update is held to
+    ``cfg["tol"]`` or ten times the distance of ``make_train_step``'s own
+    float32 update from its float64 one there, whichever is larger, measured
+    in this run."""
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.parallel import (make_pipeline_train_step,
+                                              make_sharded_train_step,
+                                              make_tp_train_step, make_train_step)
+
+    n, d, bond, batch, lr = (cfg[k] for k in ("n_sites", "phys", "bond", "batch", "lr"))
+    gen = _gen(device, cfg["seed"])
+    mps = MPS.random(n, d, bond, generator=gen, device=device)
+    x = torch.randn((batch, n, d), generator=gen, device=device)
+    y = torch.zeros((batch,), device=device)
+    single = make_train_step(lr=lr)
+    ref, ref_loss = runs("train_reference", lambda: single(mps, x, y))
+    cond = mps_condition(mps.cores, mps.left, mps.right, x)
+    keep = torch.nonzero(TOL_F32 * cond <= 1)[:, 0].to(device)
+    xk, yk = x[keep], y[keep]
+    ref_k, _ = single(mps, xk, yk)
+    mps64 = MPS(*(t.double() for t in (mps.cores, mps.left, mps.right)))
+    ref64_k, _ = single(mps64, xk.double(), yk.double())
+
+    def update_err(new, want):
+        """The update's distance from ``want``'s, relative to its largest
+        entry, over cores, left and right together."""
+        def update(m):
+            return torch.cat([(getattr(m, k).double() - getattr(mps64, k)).reshape(-1)
+                              for k in ("cores", "left", "right")])
+        return _max_rel(update(new), update(want))
+
+    spread = update_err(ref_k, ref64_k)
+    tol = max(cfg["tol"], 10 * spread)
+    log(f"  make_train_step {n} x {bond} x {batch} fp32: "
+        f"{1e3 * runs.secs('train_reference'):.1f} ms, loss {float(ref_loss):.6g} ({smi}); "
+        f"on the {keep.numel()}/{batch} samples with {TOL_F32} x cond <= 1 its update is "
+        f"{spread:.2e} (of the largest entry) from the float64 step's, so the tolerance "
+        f"there is max({cfg['tol']}, 10 x that) = {tol:.2e}; on the whole batch "
+        f"{update_err(ref, single(mps64, x.double(), y.double())[0]):.2e}")
+    steps = {"sharded": make_sharded_train_step(meshes[("dp", "sp")], lr=lr),
+             "tp": make_tp_train_step(meshes[("dp", "sp", "tp")], lr=lr),
+             "pipeline": make_pipeline_train_step(meshes[("pp",)], lr=lr)}
+    for name, step in steps.items():
+        def train():
+            m, out = mps, []
+            for _ in range(cfg["steps"]):
+                (m, loss), secs = _timed(lambda: step(m, x, y), device)
+                out.append((m, float(loss), secs))
+            return out
+        out = runs(f"train_{name}", train)
+        err = update_err(step(mps, xk, yk)[0], ref_k)
+        loss_err = abs(out[0][1] - float(ref_loss)) / abs(float(ref_loss))
+        log(f"  train_{name} {n} x {bond} x {batch} fp32: steps "
+            f"{', '.join(f'{1e3 * s:.1f}' for _, _, s in out)} ms, losses "
+            f"{[round(v, 6) for _, v, _ in out]} ({smi}); against make_train_step: first "
+            f"loss {loss_err:.2e} (tol {cfg['tol']}), first update "
+            f"{update_err(out[0][0], ref):.2e} of its largest entry on the whole batch, "
+            f"{err:.2e} on the well-conditioned samples (tol {tol:.2e})")
+        if not all(math.isfinite(v) for _, v, _ in out):
+            raise AssertionError(f"train_{name}: non-finite loss")
+        _check(f"train_{name}: first loss against make_train_step", loss_err, cfg["tol"])
+        _check(f"train_{name}: update on the well-conditioned samples", err, tol)
+
+
+def par_born_path(device, smi, cfg, runs, meshes):
+    """``fit_born_machine_sharded`` over dp 1 against the full-batch
+    ``fit_born_machine``.  At these widths Adam's trajectory is chaotic: a
+    perturbation at the rounding level grows about a thousandfold a step
+    (its entries with gradients near ``eps``), and optax's Adam (the sharded
+    fit) and torch's (``fit_born_machine``) round apart, so after 10 steps
+    even their float64 losses part by about 5e-4.  The float32 run is timed
+    and its distance printed; in float64, the first update's parameters and
+    the first ``cfg["held"]`` losses (the loss function and the first updates,
+    Adam's moments carried) are held to ``cfg["tol"]`` of the largest."""
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.models.born import born_machine, fit_born_machine
+    from contractn_tpu_torch.parallel import fit_born_machine_sharded
+
+    nb, bb, batch, steps = (cfg[k] for k in ("n_sites", "bond", "batch", "steps"))
+    gen = _gen(device, cfg["seed"])
+    model = born_machine(nb, 2, bb, dtype=torch.float32, generator=gen, device=device)
+    data = torch.randint(0, 2, (batch, nb), generator=gen, device=device)
+    _, want = runs("born_reference", lambda: fit_born_machine(model, data, steps=steps,
+                                                              lr=cfg["lr"]))
+    _, got = runs("born_sharded", lambda: fit_born_machine_sharded(
+        model, data, meshes[("dp",)], steps=steps, lr=cfg["lr"]))
+    model64 = MPS(*(t.double() for t in (model.cores, model.left, model.right)))
+    held = cfg["held"]
+    _, want64 = fit_born_machine(model64, data, steps=held, lr=cfg["lr"])
+    _, got64 = fit_born_machine_sharded(model64, data, meshes[("dp",)], steps=held,
+                                        lr=cfg["lr"])
+    one_want, _ = fit_born_machine(model64, data, steps=1, lr=cfg["lr"])
+    one_got, _ = fit_born_machine_sharded(model64, data, meshes[("dp",)], steps=1,
+                                          lr=cfg["lr"])
+
+    def update(m):
+        return torch.cat([(getattr(m, k) - getattr(model64, k)).reshape(-1)
+                          for k in ("cores", "left", "right")])
+
+    err64 = _max_rel(got64, want64)
+    err_update = _max_rel(update(one_got), update(one_want))
+    log(f"  fit_born_machine_sharded {nb} x {bb} x {batch}, {steps} Adam steps, dp 1: "
+        f"{runs.secs('born_sharded'):.3f} s (fit_born_machine "
+        f"{runs.secs('born_reference'):.3f} s) fp32 ({smi}); NLL {float(got[0]):.6f} -> "
+        f"{float(got[-1]):.6f}; fp32 losses against fit_born_machine's "
+        f"{_max_rel(got, want):.2e} of the largest; fp64, losses "
+        f"{[round(float(v), 10) for v in got64]}, the first {held} against "
+        f"fit_born_machine's {err64:.2e} of the largest, the first update "
+        f"{err_update:.2e} of its largest entry (tol {cfg['tol']})")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("fit_born_machine_sharded: non-finite loss")
+    _check("sharded Born losses against fit_born_machine, float64", err64, cfg["tol"])
+    _check("sharded Born first update against fit_born_machine's, float64", err_update,
+           cfg["tol"])
+
+
+def par_dmrg_path(device, smi, cfg, rs_cfg, runs, meshes):
+    """``dmrg_uniform_tp`` on the TFIM chain against ``dmrg_uniform`` and
+    ``dmrg_realspace`` against the free fermions, both before and after its
+    serial polish; the tp DMRG also at a small size against the CPU."""
+    from contractn_tpu_torch.models import MPS, dmrg_uniform, tfim_mpo
+    from contractn_tpu_torch.parallel import dmrg_realspace, dmrg_uniform_tp
+
+    n, bond, iters = cfg["n_sites"], cfg["bond"], cfg["iters"]
+    mpo = tfim_mpo(n, h=cfg["h"], device=device)
+    mps0 = MPS.random(n, 2, bond, dtype=torch.float64, generator=_gen(device, cfg["seed"]),
+                      device=device)
+    _, e_tp, tr_tp = runs("dmrg_tp", lambda: dmrg_uniform_tp(
+        meshes[("tp",)], mpo, mps0, sweeps=cfg["sweeps"], lanczos_iters=iters))
+    _, e_ref, tr_ref = runs("dmrg_tp_reference", lambda: dmrg_uniform(
+        mpo, mps0, sweeps=cfg["sweeps"], lanczos_iters=iters))
+    _, e_rs, es = runs("dmrg_realspace", lambda: dmrg_realspace(
+        meshes[("sp",)], mpo, mps0, outer_iters=rs_cfg["outer"], lanczos_iters=iters,
+        final_sweeps=rs_cfg["final"]))
+    exact = tfim_free_fermion(n, cfg["h"])
+    e_tp, e_ref, e_rs = float(e_tp), float(e_ref), float(e_rs)
+    err_tp = max(abs(e_tp - e_ref) / abs(e_ref), _max_rel(tr_tp, tr_ref))
+    err_rs = abs(e_rs - exact) / abs(exact)
+    err_par = abs(float(es[-1]) - exact) / abs(exact)
+    log(f"  dmrg_uniform_tp TFIM h {cfg['h']}, {n} sites, bond {bond}, {cfg['sweeps']} "
+        f"sweeps, Lanczos {iters}, tp 1: {runs.secs('dmrg_tp'):.2f} s (dmrg_uniform "
+        f"{runs.secs('dmrg_tp_reference'):.2f} s) ({smi}); energy {e_tp!r}, against "
+        f"dmrg_uniform {err_tp:.2e} (tol {cfg['tol']}), against free fermions "
+        f"{abs(e_tp - exact) / abs(exact):.2e}")
+    log(f"  dmrg_realspace sp 1, {rs_cfg['outer']} parallel iterations and "
+        f"{rs_cfg['final']} polish sweep: {runs.secs('dmrg_realspace'):.2f} s ({smi}); "
+        f"energy {e_rs!r} (trace {[round(float(e), 8) for e in es]}), against free "
+        f"fermions {err_rs:.2e} (tol {rs_cfg['tol']}), the last parallel iteration's "
+        f"{err_par:.2e} (tol {rs_cfg['parallel_tol']}), against dmrg_uniform's "
+        f"{cfg['sweeps']} sweeps {(e_rs - e_ref) / abs(e_ref):.2e}")
+    _check("dmrg_uniform_tp against dmrg_uniform", err_tp, cfg["tol"])
+    _check("dmrg_realspace's parallel iterations against free fermions", err_par,
+           rs_cfg["parallel_tol"])
+    _check("dmrg_realspace against free fermions", err_rs, rs_cfg["tol"])
+
+    cpu = torch.device("cpu")
+    n_c, b_c = cfg["cpu_sites"], cfg["cpu_bond"]
+    small = MPS.random(n_c, 2, b_c, dtype=torch.float64, generator=_gen(device, cfg["seed"]),
+                       device=device)
+    _, e_card, _ = runs("dmrg_tp_small", lambda: dmrg_uniform_tp(
+        meshes[("tp",)], tfim_mpo(n_c, h=cfg["h"], device=device), small, sweeps=2,
+        lanczos_iters=iters))
+    _, e_cpu, _ = dmrg_uniform(tfim_mpo(n_c, h=cfg["h"], device=cpu),
+                               MPS(*(t.to(cpu) for t in (small.cores, small.left,
+                                                          small.right))),
+                               sweeps=2, lanczos_iters=iters)
+    err = abs(float(e_card) - float(e_cpu)) / abs(float(e_cpu))
+    log(f"  dmrg_uniform_tp at {n_c} sites, bond {b_c} on {device.type} against "
+        f"dmrg_uniform on the CPU: {err:.2e} (tol {cfg['tol']})")
+    _check("dmrg_uniform_tp against the CPU", err, cfg["tol"])
+
+
+def par_ensemble_path(device, smi, cfg, runs, meshes):
+    """``dmrg_ensemble_sharded`` over dp 1 against ``dmrg_ensemble``."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import MPS, dmrg_ensemble, stack_pytrees, tfim_mpo
+    from contractn_tpu_torch.parallel import dmrg_ensemble_sharded
+
+    k, n, bond, sweeps = (cfg[key] for key in ("n_members", "n_sites", "bond", "sweeps"))
+    hs = np.linspace(cfg["h"][0], cfg["h"][1], k)
+    gen = _gen(device, cfg["seed"])
+    mpos = stack_pytrees([tfim_mpo(n, h=float(h), device=device) for h in hs])
+    mps0s = stack_pytrees([MPS.random(n, 2, bond, dtype=torch.float64, generator=gen,
+                                      device=device) for _ in hs])
+    _, got, _ = runs("ensemble_sharded", lambda: dmrg_ensemble_sharded(
+        meshes[("dp",)], mpos, mps0s, sweeps=sweeps))
+    _, want, _ = runs("ensemble_reference", lambda: dmrg_ensemble(mpos, mps0s, sweeps=sweeps))
+    err = _max_rel(got, want)
+    log(f"  dmrg_ensemble_sharded {k} TFIM chains, {n} sites, bond {bond}, {sweeps} sweep, "
+        f"dp 1: {runs.secs('ensemble_sharded'):.2f} s (dmrg_ensemble "
+        f"{runs.secs('ensemble_reference'):.2f} s) ({smi}); energies against dmrg_ensemble "
+        f"{err:.2e} (tol {cfg['tol']})")
+    _check("dmrg_ensemble_sharded against dmrg_ensemble", err, cfg["tol"])
+
+
+def par_scan_path(device, smi, cfg, runs, meshes):
+    """``ipeps_cell_scan_sharded`` over dp 1 against ``ipeps_cell_scan``."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import ipeps_cell_scan, tfim_bond_term_2d
+    from contractn_tpu_torch.parallel import ipeps_cell_scan_sharded
+
+    hs = np.linspace(*cfg["h"], cfg["n"])
+    h2s = torch.stack([tfim_bond_term_2d(1.0, float(h), device=device) for h in hs])
+    kw = dict(schedule=cfg["schedule"], iters=cfg["iters"], ops=(np.diag([1.0, -1.0]),))
+    got = runs("scan_sharded", lambda: ipeps_cell_scan_sharded(
+        meshes[("dp",)], h2s, cfg["bond"], cfg["chi"], **kw))
+    want = runs("scan_reference", lambda: ipeps_cell_scan(h2s, cfg["bond"], cfg["chi"], **kw))
+    err = max(_max_rel(got[key], want[key]) for key in ("energy", "moments", "a", "b"))
+    log(f"  ipeps_cell_scan_sharded {cfg['n']} TFIM fields, D {cfg['bond']}, chi "
+        f"{cfg['chi']}, {cfg['schedule']}, {cfg['iters']} CTMRG iterations, dp 1: "
+        f"{runs.secs('scan_sharded'):.2f} s (ipeps_cell_scan "
+        f"{runs.secs('scan_reference'):.2f} s) ({smi}); energies, moments and sites "
+        f"against ipeps_cell_scan {err:.2e} (tol {cfg['tol']})")
+    _check("ipeps_cell_scan_sharded against ipeps_cell_scan", err, cfg["tol"])
+
+
+def par_cv_path(device, smi, cfg, runs, meshes):
+    """``cv_greens_function_sharded`` over dp 1 against
+    ``cv_greens_function_batched`` on a Heisenberg ground state."""
+    import numpy as np
+
+    from contractn_tpu_torch.models import (MPS, cv_greens_function_batched, dmrg,
+                                            heisenberg_mpo)
+    from contractn_tpu_torch.parallel import cv_greens_function_sharded
+
+    n, bond = cfg["n_sites"], cfg["bond"]
+    h = heisenberg_mpo(n, device=device)
+    mps0 = MPS.random(n, 2, bond, dtype=torch.float64, generator=_gen(device, cfg["seed"]),
+                      device=device)
+    (ground, e0, _), secs = _timed(lambda: dmrg(h, mps0, max_bond=bond,
+                                                sweeps=cfg["dmrg_sweeps"]), device)
+    omegas = np.linspace(*cfg["omegas"], cfg["n_omegas"])
+    args = (h, ground, e0, np.diag([0.5, -0.5]), n // 2, omegas, cfg["eta"])
+    kw = dict(sweeps=cfg["sweeps"], cg_iters=cfg["cg_iters"])
+    got = runs("cv_sharded", lambda: cv_greens_function_sharded(meshes[("dp",)], *args, **kw))
+    want = runs("cv_reference", lambda: cv_greens_function_batched(*args, **kw))
+    err = _max_rel(got, want)
+    log(f"  cv_greens_function_sharded {len(omegas)} frequencies on the {n}-site Heisenberg "
+        f"ground state (dmrg bond {bond}, {secs:.2f} s), dp 1: {runs.secs('cv_sharded'):.2f} "
+        f"s (cv_greens_function_batched {runs.secs('cv_reference'):.2f} s) ({smi}); against "
+        f"the batched grid {err:.2e} (tol {cfg['tol']})")
+    _check("cv_greens_function_sharded against the batched grid", err, cfg["tol"])
+
+
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
     under both carries, and #3's exact-D path at a shape only it takes."""
@@ -4141,7 +4600,8 @@ def main():
     phase_build()
     kernel_smem(device)
     only = {"--physics-only": physics_phase, "--infinite-only": infinite_phase,
-            "--2d-only": two_d_phase, "--peps-only": peps_phase, "--3d-only": three_d_phase}
+            "--2d-only": two_d_phase, "--peps-only": peps_phase, "--3d-only": three_d_phase,
+            "--parallel-only": parallel_phase}
     if len(sys.argv) == 2 and sys.argv[1] in only:  # phases 1, 2 and one more alone
         only[sys.argv[1]](device, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -4183,6 +4643,7 @@ def main():
     two_d_phase(device, smi)
     peps_phase(device, smi)
     three_d_phase(device, smi)
+    parallel_phase(device, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -259,6 +259,17 @@ def cv_greens_function_batched(h_mpo, ground, e0, op, site, omegas, eta,
     operator compression: the squared bond ``(W+1)^2 + 1`` is static).
     Returns the complex numpy ``(len(omegas),)`` array.
     """
+    omegas = np.atleast_1d(np.asarray(omegas, float))
+    bky, by, norm = _cv_batched_terms(h_mpo, ground, e0, op, site, omegas, eta,
+                                      max_bond, sweeps, cg_iters, slice(None))
+    return (bky.cpu().numpy() - 1j * eta * by.cpu().numpy()) / norm
+
+
+def _cv_batched_terms(h_mpo, ground, e0, op, site, omegas, eta, max_bond, sweeps,
+                      cg_iters, members):
+    """``(<b|K|y>, <b|y>, <g|g>)`` of the batched solve for the frequencies
+    ``omegas[members]``: the per-frequency body a sharded grid runs on its
+    slice."""
     b_mps = apply_site_operator(ground, op, site)
     bs = _ragged_sites(b_mps)
     norm = _inner(ground, ground).real
@@ -266,7 +277,7 @@ def cv_greens_function_batched(h_mpo, ground, e0, op, site, omegas, eta,
     n = len(bs)
     max_bond = max_bond or b_mps.bond_dim
     device = bs[0].device
-    shifts = np.atleast_1d(np.asarray(omegas, float)) + e0
+    shifts = omegas[members] + e0
     k_lefts = as_tensor(np.stack([k_left_fn(s) for s in shifts]), device)
     a_lefts = as_tensor(np.stack([a_left_fn(s) for s in shifts]), device)
     dt = bs[0].dtype
@@ -276,8 +287,7 @@ def cv_greens_function_batched(h_mpo, ground, e0, op, site, omegas, eta,
                         int(max_bond), int(cg_iters))
     by = _overlap_batched(bs, ys)
     bky = _sandwich_batched(bs, k_cores, k_lefts, k_t.right.to(dt), ys)
-    by, bky = by.cpu().numpy(), bky.cpu().numpy()
-    return (bky - 1j * eta * by) / norm
+    return bky, by, norm
 
 
 def cv_spectral_function_batched(h_mpo, ground, e0, op, site, omegas, eta,

@@ -18,8 +18,12 @@ batched tensor), with per-member norms, exhaustion masks and tridiagonals —
 the batched form :mod:`..models.ensemble` runs its Hamiltonian ensembles
 through.
 
-``axis_name`` (inner products summed over a mesh axis in the JAX package)
-raises :class:`TNError` until this package has its mesh layer.
+``axis_name`` takes the ``ProcessGroup`` of a mesh axis (see
+:mod:`..parallel.mesh`): ``v0`` is then this rank's slice of the global
+vector, ``matvec`` maps local slice to local slice, and every norm and
+overlap is a local partial dot completed by an all-reduce over the group, as
+the JAX package's ``_maybe_psum`` does.  The tridiagonal is then the global
+one on every rank while the basis rows stay sharded.
 
 :func:`gmres` stands in for ``jax.scipy.sparse.linalg.gmres`` (torch has
 none), the solver the JAX package's infinite-chain environments call; it
@@ -31,31 +35,33 @@ import numpy as np
 import torch
 
 from ..utils.device import real_dtype
-from ..utils.errors import TNError
 from .stabilize import peinsum
 
 
-def _check_axis(axis_name):
-    if axis_name is not None:
-        raise TNError(
-            "axis_name= (Krylov vectors sharded over a mesh axis) needs the "
-            "mesh layer, which this package does not have yet"
-        )
+def _psum(x, axis_name):
+    """Sum a locally reduced value over the ranks of ``axis_name`` (no-op
+    for ``None``): the one place a sharded Krylov vector communicates."""
+    if axis_name is None:
+        return x
+    from ..parallel._collectives import psum
+
+    return psum(x, axis_name)
 
 
-def _norm(x):
-    """2-norm over the last axis."""
-    return torch.sqrt(torch.real(peinsum("...d,...d->...", x.conj(), x)))
+def _norm(x, axis_name=None):
+    """2-norm over the last axis (of the global vector with ``axis_name``)."""
+    return torch.sqrt(_psum(torch.real(peinsum("...d,...d->...", x.conj(), x)),
+                            axis_name))
 
 
-def _orthogonalize(basis, w):
+def _orthogonalize(basis, w, axis_name=None):
     """Two Gram-Schmidt passes of ``w`` against every row of ``basis``
     ("twice is enough", Parlett: one pass leaves an ``eps ||w|| / beta``
     rogue component near exhaustion).  Rows not yet filled are zero, so
     masking is implicit.  Returns ``(w, summed coefficients)``."""
     coeffs = 0
     for _ in range(2):
-        proj = peinsum("...kd,...d->...k", basis.conj(), w)
+        proj = _psum(peinsum("...kd,...d->...k", basis.conj(), w), axis_name)
         w = w - peinsum("...k,...kd->...d", proj, basis)
         coeffs = coeffs + proj
     return w, coeffs
@@ -76,7 +82,6 @@ def lanczos_basis(matvec, v0, iters, axis_name=None, project=None,
     enough: each application leaves an ``eps``-relative out-of-subspace
     residual that Gram-Schmidt re-injects, growing geometrically.
     """
-    _check_axis(axis_name)
     batch = tuple(v0.shape[:batch_ndim])
     shape = tuple(v0.shape[batch_ndim:])
     dt = v0.dtype
@@ -85,7 +90,7 @@ def lanczos_basis(matvec, v0, iters, axis_name=None, project=None,
         v0 = project(v0)
     flat = v0.reshape(batch + (-1,))
     dim = flat.shape[-1]
-    nrm0 = torch.clamp(_norm(flat), min=1e-300)
+    nrm0 = torch.clamp(_norm(flat, axis_name), min=1e-300)
     basis = torch.zeros(batch + (iters + 1, dim), dtype=dt, device=v0.device)
     basis[..., 0, :] = flat / nrm0[..., None]
     alphas = torch.full(batch + (iters,), float("inf"), dtype=rdt,
@@ -96,11 +101,11 @@ def lanczos_basis(matvec, v0, iters, axis_name=None, project=None,
     for j in range(iters):
         v = basis[..., j, :]
         hv = matvec(v.reshape(batch + shape)).reshape(batch + (dim,))
-        alpha = torch.real(peinsum("...d,...d->...", v.conj(), hv))
-        hv, _ = _orthogonalize(basis, hv)
+        alpha = _psum(torch.real(peinsum("...d,...d->...", v.conj(), hv)), axis_name)
+        hv, _ = _orthogonalize(basis, hv, axis_name)
         if project is not None:
             hv = project(hv.reshape(batch + shape)).reshape(batch + (dim,))
-        beta = _norm(hv)
+        beta = _norm(hv, axis_name)
         alive = ~exhausted & (beta > 1e-12)
         basis[..., j + 1, :] = torch.where(
             alive[..., None], hv / torch.clamp(beta, min=1e-300)[..., None],
@@ -151,7 +156,9 @@ def lanczos_ground(matvec, v0, iters, axis_name=None, project=None,
     Returns ``(energy, vector)``: the energy as a float (a float64 numpy
     array for a batch; the one host read of the solve) and the vector
     normalized per batch member.  ``project`` confines the iteration to an
-    invariant subspace (see :func:`lanczos_basis`).
+    invariant subspace (see :func:`lanczos_basis`).  With ``axis_name``,
+    ``v0``, ``matvec`` and the vector are this rank's slice (see
+    :func:`lanczos_basis`); the small eigenproblem runs on every rank.
     """
     basis, alphas, betas, _ = lanczos_basis(matvec, v0, iters, axis_name,
                                             project=project,
@@ -159,7 +166,7 @@ def lanczos_ground(matvec, v0, iters, axis_name=None, project=None,
     vals, vecs = tridiagonal_eigh(alphas, betas)
     coeff = torch.from_numpy(vecs[..., :, 0]).to(v0.device, v0.dtype)
     vec = peinsum("...k,...kd->...d", coeff, basis[..., :-1, :])
-    vec = vec / torch.clamp(_norm(vec), min=1e-300)[..., None]
+    vec = vec / torch.clamp(_norm(vec, axis_name), min=1e-300)[..., None]
     energy = vals[..., 0]
     return (float(energy) if batch_ndim == 0 else energy), vec.reshape(v0.shape)
 
@@ -172,22 +179,22 @@ def arnoldi_basis(matvec, v0, iters, axis_name=None):
     ``A V_m = V_{m+1} H``.  Breakdown (an exact invariant subspace) zeroes
     the subdiagonal entry and all later rows and columns; detect it on the
     host via ``h[j + 1, j] == 0``.  Reorthogonalizes twice, like
-    :func:`lanczos_basis`, with no host sync in the loop.
+    :func:`lanczos_basis`, with no host sync in the loop; ``axis_name``
+    shards the vectors as there.
     """
-    _check_axis(axis_name)
     shape = v0.shape
     dt = v0.dtype
     flat = v0.reshape(-1)
     dim = flat.shape[0]
-    nrm0 = torch.clamp(_norm(flat), min=1e-300)
+    nrm0 = torch.clamp(_norm(flat, axis_name), min=1e-300)
     basis = torch.zeros((iters + 1, dim), dtype=dt, device=v0.device)
     basis[0] = flat / nrm0
     h = torch.zeros((iters + 1, iters), dtype=dt, device=v0.device)
     exhausted = torch.zeros((), dtype=torch.bool, device=v0.device)
     for j in range(iters):
         w = matvec(basis[j].reshape(shape)).reshape(-1)
-        w, coeffs = _orthogonalize(basis, w)
-        beta = _norm(w)
+        w, coeffs = _orthogonalize(basis, w, axis_name)
+        beta = _norm(w, axis_name)
         alive = ~exhausted & (beta > 1e-12)
         h[:, j] = torch.where(exhausted, torch.zeros_like(coeffs), coeffs)
         h[j + 1, j] = torch.where(alive, beta.to(dt), torch.zeros_like(h[j + 1, j]))

@@ -191,6 +191,17 @@ def test_three_d_paths_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_parallel_paths_on_gpu(cuda_device):
+    # phase 14 at its rehearsal size in a world of one rank over NCCL: every
+    # path against its single-device counterpart; only the evaluation the
+    # sharded forward is held against launches #1
+    runs = chip_smoke.parallel_phase(cuda_device, "test", chip_smoke.PARALLEL_TINY)
+    for path, (counts, _) in runs.items():
+        assert counts["mps_evaluate"] == int(path == "forward_reference"), path
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.cuda
 def test_contract_gradient_lands_on_the_operand_device(cuda_device):
     import contractn_tpu_torch as ttn
 

@@ -153,6 +153,8 @@ def _port_files():
         PORT.parent / "chip_smoke.py",
         PORT.parent / "scripts" / "profile_training_cuda.py",
         PORT.parent / "scripts" / "profile_chains_cuda.py",
+        PORT.parent / "scripts" / "profile_parallel_cuda.py",
+        PORT.parent / "scripts" / "born_adam_divergence.py",
         PORT.parent / "scripts" / "time_chemistry_mpo.py",
     ]
 
@@ -166,7 +168,8 @@ def test_scans_cover_every_ported_module():
                    "models/itebd.py", "models/circuits.py", "models/linsolve.py",
                    "models/chebyshev.py", "models/excitations.py",
                    "ops/optim.py",
-                   *(f"models/{m}.py" for m in SLICES)):
+                   *(f"models/{m}.py" for m in SLICES),
+                   *(f"parallel/{m}.py" for m in SLICE12)):
         assert module in scanned, module
     assert all(p.is_file() for p in _port_files())
 
@@ -192,6 +195,11 @@ SLICE11 = ("hotrg3d", "ipeps3d", "thermal3d", "ttn", "ttn_tdvp")
 
 SLICES = SLICE7 + SLICE8 + SLICE9 + SLICE10 + SLICE11
 
+# Queue A §11: the parallel layer on torch.distributed, at the JAX package's
+# paths (plus the port's collectives and its multi-process dry run)
+SLICE12 = ("mesh", "_collectives", "sharded", "tp", "training", "pipeline", "generative",
+           "ensembles", "tp_dmrg", "rs_dmrg", "spectra", "dryrun")
+
 
 def test_models_export_the_jax_names_of_each_ported_module():
     """From each of these modules, ``models/__init__`` exports exactly the
@@ -215,13 +223,15 @@ def test_models_export_the_jax_names_of_each_ported_module():
         assert all(hasattr(models, n) for n in names)
 
 
-# Names the port exports beyond the JAX package's, by subpackage, and the
+# Names the port exports beyond the JAX package's, by subpackage (``parallel``
+# also exports the log-MSE ``loss_fn`` its training steps share), and the
 # subpackages whose JAX names are not all ported: ``utils`` holds a jaxlib
-# workaround with no counterpart by design, ``parallel`` waits for its slice
-# (ROADMAP Queue A §11).
-PORT_ONLY = {"models": {"boundary_contract", "rayleigh", "truncate_safe"}}
+# workaround with no counterpart by design.  Every subpackage is ported (the
+# parallel layer last, Queue A §11).
+PORT_ONLY = {"models": {"boundary_contract", "rayleigh", "truncate_safe"},
+             "parallel": {"loss_fn"}}
 NO_COUNTERPART = {"utils": {"CompileGuard", "cache_guard"}}
-PENDING = ("parallel",)
+PENDING = ()
 
 
 @pytest.mark.parametrize("sub", ["models", "ops", "compiler", "utils", "parallel"])

@@ -15,7 +15,6 @@ import torch
 
 from contractn_tpu.ops import krylov as jk
 from contractn_tpu_torch.ops import krylov as tk
-from contractn_tpu_torch.utils.errors import TNError
 
 torch.set_num_threads(1)
 
@@ -154,7 +153,29 @@ def test_arnoldi_eigs_match_jax(case):
 
 
 def test_axis_name_raises_until_the_mesh_layer():
-    with pytest.raises(TNError, match="mesh"):
-        tk.lanczos_basis(lambda v: v, torch.ones(3), 2, axis_name="x")
-    with pytest.raises(TNError, match="mesh"):
-        tk.arnoldi_basis(lambda v: v, torch.ones(3), 2, axis_name="x")
+    # the mesh layer has landed: axis_name takes a process group, and over a
+    # group of one rank the factorizations equal the unsharded ones (the
+    # 2-rank parity is in tests/test_torch_parallel.py)
+    import socket
+
+    import torch.distributed as dist
+
+    h, v0 = _hermitian(12, 3)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        a = torch.from_numpy(h)
+        for fn in (tk.lanczos_basis, tk.arnoldi_basis):
+            want = fn(lambda v: a @ v, torch.from_numpy(v0), 6)
+            got = fn(lambda v: a @ v, torch.from_numpy(v0), 6, axis_name=group)
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=TOL, atol=1e-12)
+        e, vec = tk.lanczos_ground(lambda v: a @ v, torch.from_numpy(v0), 8,
+                                   axis_name=group)
+        assert e == tk.lanczos_ground(lambda v: a @ v, torch.from_numpy(v0), 8)[0]
+    finally:
+        dist.destroy_process_group()

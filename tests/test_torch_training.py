@@ -129,8 +129,8 @@ def test_optimizer_step_matches_optax_adam():
     for got, want in zip(mps_to_numpy(mt), (mj.cores, mj.left, mj.right)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=1e-12)
     assert torch.equal(mps_from_numpy(cores, left, right, device="cpu").cores, before)
-    with pytest.raises(TNError, match="mesh"):
-        make_optax_train_step(lambda p: torch.optim.Adam(p), mesh=object())
+    with pytest.raises(ValueError, match="custom loss is not supported with mesh="):
+        make_optax_train_step(lambda p: torch.optim.Adam(p), mesh=object(), loss=loss_fn)
 
 
 def _cp_network(pkg, rng):
