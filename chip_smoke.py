@@ -19,8 +19,8 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    one core buffer where two do not fit, and the exact-D path where no
    tensor-core tier fits (d 2, W 7, D 50; d 1, W 9, D 55), each asserting
    which of the MPO kernel's paths launched;
-4. main path through the user entry points: the three README examples via
-   ``TN.contract``, the flagship batched ``MPS.evaluate`` (1000 sites x d 2
+4. main path through the user entry points: the three README examples
+   through ``examples/torch/readme_examples.py``, the flagship batched ``MPS.evaluate`` (1000 sites x d 2
    x bond 64 x batch 4096, float32), the carry-returning evaluation at the
    same shape and the batched TFIM MPO expectation (50 sites x bond 64 x
    1000 parameter sets); each kernel's launch count is zeroed just before
@@ -43,7 +43,9 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    the bucketed lowering (plan items against steps, its warm time beside the
    per-step loop's, the float64 oracle, ``contract_expression`` and
    ``TN.compile(...).measure_compile()``); a random 3-regular network on the
-   native greedy path against the oracle; ``bp_contract`` on a 20,000-spin
+   native greedy path against the oracle, and on the paths of
+   ``"random-greedy"``, ``"random-greedy-128"`` and ``"auto-hq"`` (each
+   searched twice, the same path both times); ``bp_contract`` on a 20,000-spin
    3-regular Ising model against its closed-form Bethe free energy (float64
    and float32); imaginary-time TFIM simple-update layers on a 16 x 16
    grid, card against CPU in float64, and the 3 x 3 anchor against exact
@@ -151,7 +153,10 @@ The second-to-last line of output is the ``{"kernels": [...]}`` summary, the
 last ``{"ok": true, "device": {...}}``.  ``--physics-only``
 (``--infinite-only``, ``--2d-only``, ``--peps-only``, ``--3d-only``,
 ``--parallel-only``) runs phases 1, 2 and 9 (10, 11, 12, 13, 14) alone and
-prints neither.  Without a GPU, or without the
+prints neither.  ``--examples-only [name ...]`` runs phases 1 and 2, then
+every ``examples/torch/*.py`` script (or those named) on the card, each in
+its own process (``examples_phase``), and ends with the ``{"ok": true,
+...}`` line.  Without a GPU, or without the
 package beside this file, it exits nonzero and prints no result.
 """
 
@@ -161,6 +166,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -214,11 +220,13 @@ FIT_TN_STEPS = 60
 # np.einsum to a few seconds.
 # ISING: the Ising model on a random 3-regular multigraph at beta 0.2, whose
 # Bethe free energy is known in closed form.  GRID: imaginary-time TFIM
-# simple update on an open grid (2 layers, 3 until phase 14, 5 until phase
-# 12); ANCHOR: the
+# simple update on an open grid, card against CPU (2 layers, the fewest
+# whose bonds reach max_bond, so truncation is held; 3 until phase 14, 5
+# until phase 12); ANCHOR: the
 # same on 3 x 3 against exact diagonalization (6 layers a step size, 15
 # until phase 14: 8.4e-5 from exact on the card against the 1e-2 limit).  RING: bp_ground_state on a
-# TFIM ring.
+# TFIM ring, card against CPU (30 descent steps, 50 until the random-greedy
+# path joined this phase).  The random-greedy path runs on NATIVE's network.
 GRAPH = {
     "lowering": {"n_mats": 4096, "dims": (48, 64), "block": 12, "reps": 2,
                  "jax_plan_items": 1047},
@@ -227,7 +235,7 @@ GRAPH = {
     "grid": {"side": 16, "h": 3.0, "tau": 0.05, "layers": 2, "max_bond": 8},
     "anchor": {"side": 3, "h": 3.0, "taus": (0.2, 0.1, 0.05, 0.02),
                "layers": 6, "max_bond": 4},
-    "ring": {"n_sites": 32, "h": 2.0, "bond": 8, "steps": 50, "n_sweeps": 10,
+    "ring": {"n_sites": 32, "h": 2.0, "bond": 8, "steps": 30, "n_sweeps": 10,
              "lr": 0.02},
 }
 # Finite-chain paths (phase 8).  SPIN1: the spin-1 Heisenberg chain of
@@ -1082,27 +1090,31 @@ def read_counters():
     }
 
 
+def _example(name):
+    """The module ``examples/torch/<name>.py`` of the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def readme_examples(device):
-    """The README's three examples through ``TN.contract`` on ``device``."""
+    """The README's three examples through the port's example script
+    (``examples/torch/readme_examples.py``) on ``device``."""
     import numpy as np
 
-    from contractn_tpu_torch import TN
-
-    tn = TN()
-    hub = tn.add_copy_node(101)
-    for i in range(100):
-        tn.connect_nodes(hub, tn.add_dense_node(np.array([1, 0.99])), i, 0)
-    out = tn.contract(device=device)
+    ex = _example("readme_examples")
+    out = ex.copy_tensor_example(device)
     assert out.device.type == device.type
     np.testing.assert_allclose(out.cpu().numpy(), [1.0, 0.99 ** 100], rtol=1e-10)
 
-    cp, tucker = TN(), TN()
-    cp_hub = cp.add_copy_node(3)
-    tucker_hub = tucker.add_dense_node(np.ones((4, 4, 4)))
+    # random factors: on np.eye both results are symmetric in their output
+    # indices, and a wrong output order would pass
     mats = [np.random.default_rng(i).standard_normal((4, 10)) for i in range(3)]
-    for i, mat in enumerate(mats):
-        cp.connect_nodes(cp_hub, cp.add_dense_node(mat), i, 0)
-        tucker.connect_nodes(tucker_hub, tucker.add_dense_node(mat), i, 0)
+    cp, tucker = ex.einsum_string_example(mats)
     assert cp.einsum_str == "ac,ad,ae->cde", cp.einsum_str
     assert tucker.einsum_str == "abc,ae,bf,cg->efg", tucker.einsum_str
     np.testing.assert_allclose(cp.contract(device=device).cpu().numpy(),
@@ -1111,14 +1123,8 @@ def readme_examples(device):
                                np.einsum("abc,ae,bf,cg->efg", np.ones((4,) * 3), *mats),
                                rtol=1e-10)
 
-    chain = TN()
-    prev = chain.add_dense_node(np.ones((3,)))
-    for _ in range(1000):
-        mat = chain.add_dense_node(np.ones((3, 3)))
-        chain.connect_nodes(prev, mat, -1, 0)
-        prev = mat
-    assert bool(chain.contract(device=device).isinf().all())
-    mant, log_scale = chain.contract(split_format=True, device=device)
+    plain, mant, log_scale = ex.stable_contraction_example(device)
+    assert bool(plain.isinf().all())
     np.testing.assert_allclose(mant.cpu().numpy(), [1.0, 1.0, 1.0], rtol=1e-10)
     assert abs(float(log_scale) - 1000 * math.log(3.0)) < 1e-8, float(log_scale)
     log(f"  README examples on {device}: copy-101, CP/Tucker strings and values, "
@@ -1397,6 +1403,7 @@ def graph_paths(device, smi, sizes=GRAPH):
 
     drive("lowering", lambda: lowering_path(device, smi, sizes["lowering"]))
     drive("native_greedy", lambda: native_path(device, smi, sizes["native"]))
+    drive("random_greedy", lambda: random_greedy_path(device, smi, sizes["native"]))
     t0 = time.perf_counter()
     ising = ising_tn(sizes["ising"]["n_spins"], sizes["ising"]["beta"])
     log(f"  Ising network built on the host in {time.perf_counter() - t0:.1f} s "
@@ -1524,6 +1531,51 @@ def native_path(device, smi, cfg):
         f"oracle {want:.12g}")
     if not (same_sign and abs(got - want) <= 1e-9 * abs(want)):
         raise AssertionError("native-greedy contraction disagrees with the oracle")
+
+
+def random_greedy_path(device, smi, cfg):
+    """opt_einsum's random-greedy family on the native path's network: each
+    strategy's log|Z| on the card in float64 against the numpy oracle on the
+    same path, each search run twice (the same path both times), and each
+    path's cost beside greedy's and native greedy's."""
+    import numpy as np
+
+    from contractn_tpu_torch.compiler.engine import _parse
+    from contractn_tpu_torch.compiler.paths import find_path
+    from contractn_tpu_torch.models.decompositions import random_regular_tn
+
+    tn, _ = random_regular_tn(cfg["n_nodes"], cfg["degree"], cfg["bond"],
+                              rng=np.random.default_rng(cfg["seed"]))
+    einstr, pack = tn._compiled_spec()
+    shapes = tuple(tuple(int(d) for d in t.shape) for t in pack(tn.params, ()))
+    terms, output = _parse(einstr)
+    for name in ("greedy", "native-greedy"):
+        info = tn.contraction_info(optimize=name)
+        log(f"  {name}: {info.flops:.4e} FLOPs, largest intermediate "
+            f"{info.largest_intermediate:.4e} elements")
+    paths = {}
+    for name in ("random-greedy", "random-greedy-128", "auto-hq"):
+        t0 = time.perf_counter()
+        paths[name] = find_path.__wrapped__(tuple(terms), output, shapes, name, None)
+        search = time.perf_counter() - t0
+        if name != "auto-hq" and find_path.__wrapped__(
+                tuple(terms), output, shapes, name, None) != paths[name]:
+            raise AssertionError(f"{name}: a second search found another path")
+        info = tn.contraction_info(optimize=name)
+        (mant, lg), secs = _timed(lambda: tn.contract(
+            split_format=True, optimize=name, device=device), device)
+        ref_m, ref_l = tn.contract(split_format=True, optimize=name, backend="numpy")
+        got = math.log(abs(float(mant))) + float(lg)
+        want = math.log(abs(float(ref_m))) + float(ref_l)
+        same_sign = (float(mant) > 0) == (float(ref_m) > 0)
+        log(f"  {name}: {info.flops:.4e} FLOPs, largest intermediate "
+            f"{info.largest_intermediate:.4e} elements; search {search:.3f} s on the "
+            f"host, contraction {1e3 * secs:.1f} ms on the card (float64, {smi}); "
+            f"log|Z| {got:.12g} vs oracle {want:.12g}")
+        if not (same_sign and abs(got - want) <= 1e-9 * abs(want)):
+            raise AssertionError(f"{name} contraction disagrees with the oracle")
+    if paths["auto-hq"] != paths["random-greedy-128"]:
+        raise AssertionError("auto-hq above 16 operands is not random-greedy-128")
 
 
 def ising_tn(n_spins, beta, seed=0):
@@ -4587,6 +4639,63 @@ def three_d_phase(device, smi):
     log(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
 
+# Seconds an example script may take on the card, and how many run at once:
+# the longest (renormalization's 14,000 MERA sweeps, hubbard_ipeps's 730
+# gradient steps) take about 20 minutes each, one after another all 20 take
+# longer than one call to the card may last, and each is bound by its own
+# host thread, so four share the card's machine.
+EXAMPLE_TIMEOUT = 2400
+EXAMPLE_LANES = 4
+
+
+def examples_phase(device, smi, names=()):
+    """Every ``examples/torch/*.py`` (or those named) in its own process on
+    ``device``, ``EXAMPLE_LANES`` at a time, each with ``EXAMPLE_TIMEOUT``:
+    its seconds (while the others run) and last printed line are logged, its
+    whole output written to ``build/examples/<name>.log``; raises if
+    any script fails or runs out of time."""
+    import os
+
+    log(f"== examples: each examples/torch script in its own process, "
+        f"{EXAMPLE_LANES} at a time")
+    scripts = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    if names:
+        scripts = [p for p in scripts if p.stem in names]
+        if len(scripts) != len(set(names)):
+            raise AssertionError(f"unknown example among {sorted(names)}")
+    out_dir = ROOT / "build" / "examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, (str(ROOT), os.environ.get("PYTHONPATH"))))}
+
+    def run(script):
+        path = out_dir / f"{script.stem}.log"
+        t0 = time.perf_counter()
+        with open(path, "w") as out:
+            try:
+                rc = subprocess.run([sys.executable, str(script), "--device", device.type],
+                                    cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+                                    timeout=EXAMPLE_TIMEOUT).returncode
+                status = f"exit {rc}"
+            except subprocess.TimeoutExpired:  # run() has killed it
+                status = f"timed out after {EXAMPLE_TIMEOUT} s"
+        secs = time.perf_counter() - t0
+        lines = [line for line in path.read_text().splitlines() if line.strip()]
+        log(f"  {script.name}: {secs:.1f} s, {status} ({smi}); last line: "
+            f"{lines[-1].strip() if lines else '(none)'}")
+        if status != "exit 0":
+            log("    " + "\n    ".join(lines[-6:]))
+            return script.name
+        return None
+
+    t_all = time.perf_counter()
+    with ThreadPoolExecutor(EXAMPLE_LANES) as pool:
+        failed = [name for name in pool.map(run, scripts) if name]
+    log(f"examples: {len(scripts)} scripts in {time.perf_counter() - t_all:.1f} s")
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+
+
 def main():
     if not (ROOT / "contractn_tpu_torch" / "__init__.py").is_file():
         fail(f"no contractn_tpu_torch package beside {Path(__file__).name}; "
@@ -4605,6 +4714,12 @@ def main():
     if len(sys.argv) == 2 and sys.argv[1] in only:  # phases 1, 2 and one more alone
         only[sys.argv[1]](device, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        return
+    if len(sys.argv) >= 2 and sys.argv[1] == "--examples-only":
+        examples_phase(device, smi, sys.argv[2:])
+        log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return
     log("== 3. kernels against their plain versions")
     errors = phase_kernels_vs_plain(device)

@@ -18,11 +18,13 @@ Counterpart of ``contractn_tpu/compiler/engine.py``.  Public entry point:
   generalized diagonal.
 * ``backend="numpy"`` runs the same step sequence eagerly in numpy — the
   float64 parity oracle.
+* ``backend="tensorflow"`` takes TF tensors and Variables, computes through
+  this engine and returns TF tensors that a ``tf.GradientTape`` records
+  (:mod:`.interop`).
 
-Departures from the JAX package: path search is greedy, native greedy or
-explicit (no other opt_einsum strategies); torch operands keep native
-autograd instead of going through an interop bridge; and the computation
-runs on the GPU unless the caller asks for the CPU (:mod:`..utils.device`).
+Departures from the JAX package: torch operands keep native autograd
+instead of going through an interop bridge, and the computation runs on the
+GPU unless the caller asks for the CPU (:mod:`..utils.device`).
 """
 
 import time
@@ -61,18 +63,23 @@ def contract(*operands, **kwargs):
         split_format: If True return ``(mantissa, log_scale)`` with
             ``mean(|mantissa|) == 1`` and true result
             ``mantissa * exp(log_scale)``; if False return the dense result.
-        optimize: ``"auto"``/``"greedy"`` (greedy path search) or an
+        optimize: a path strategy (``"auto"``, ``"greedy"``,
+            ``"optimal"``, ``"dp"``, ``"random-greedy"``, ... as in
+            opt_einsum, see :mod:`.paths`; or ``"native-greedy"``) or an
             explicit path list.
         memory_limit: optional bound on intermediate size (elements) for
             the path search.
-        backend: ``"torch"`` (default, alias ``"auto"``) or ``"numpy"`` for
-            an eager float64-capable host oracle.
+        backend: ``"torch"`` (default, alias ``"auto"``), ``"numpy"`` for
+            an eager float64-capable host oracle, or ``"tensorflow"``
+            (TF tensors in and out, with tape gradients; needs
+            tensorflow).
         device: where the torch backend computes.  Default: the torch
             operands' device, else ``cuda``; raises without a GPU unless
             ``device="cpu"`` is given.
         dtype: cast the operands to this dtype first.
-        use_blas / order / casting: accepted for signature compatibility;
-            no-ops.
+        jit / use_blas / order / casting: accepted for signature
+            compatibility; no-ops (the steps run eagerly, there is no
+            trace to switch off).
 
     Returns:
         The contracted tensor, or ``(mantissa, log_scale)`` in split format.
@@ -91,6 +98,7 @@ def contract(*operands, **kwargs):
     backend = kwargs.pop("backend", "auto")
     device = kwargs.pop("device", None)
     dtype = kwargs.pop("dtype", None)
+    kwargs.pop("jit", None)
     kwargs.pop("use_blas", None)
     kwargs.pop("order", None)
     kwargs.pop("casting", None)
@@ -98,13 +106,19 @@ def contract(*operands, **kwargs):
         raise TypeError(
             "Did not understand the following kwargs: {}".format(sorted(kwargs))
         )
-    if backend not in ("auto", "torch", "numpy"):
+    if backend not in ("auto", "torch", "numpy", "tensorflow"):
         raise TNError(f"Unknown backend '{backend}'")
 
     einstr = einstr.replace(" ", "")
     shapes = tuple(tuple(int(d) for d in t.shape) for t in tensors)
     _validate(einstr, shapes)
     optimize = _freeze(optimize)
+
+    if backend == "tensorflow":
+        from .interop import tf_contract
+
+        return tf_contract(einstr, tensors, dtype, optimize, memory_limit,
+                           split_format, device=device)
 
     if backend == "numpy":
         arrays = [

@@ -21,12 +21,17 @@ same path as opt_einsum's on the same signature:
   products);
 * ``"auto"`` — by operand count: ``optimal`` for 1–4, ``branch-all`` for
   5–6, ``branch-2`` for 7–8, ``branch-1`` for 9–14, ``greedy`` above;
-* ``"auto-hq"`` — ``optimal`` for 1–5 operands, ``dp`` for 6–16.
-
-Departure: the ``random-greedy`` family is not ported (its random draws
-would not match opt_einsum's), so ``"random-greedy"``,
-``"random-greedy-128"`` and ``"auto-hq"`` above 16 operands raise
-:class:`TNError`.
+* ``"random-greedy"`` / ``"random-greedy-128"`` — 32 / 128 greedy trials
+  (opt_einsum 3.4.0's ``path_random.py``): trial 0 takes the least
+  jittered cost, later ones draw among the 8 best candidates with
+  Boltzmann weights; the path of fewest FLOPs is kept.  Trial ``r`` draws
+  from its own ``random.Random(r)``, so the path is opt_einsum's (which
+  seeds the global ``random`` with ``r``) and the same on every call in a
+  process.  Another process may find another path, as opt_einsum does:
+  Python seeds its string hashes per process, and the order in which the
+  trials meet their candidates follows them;
+* ``"auto-hq"`` — ``optimal`` for 1–5 operands, ``dp`` for 6–16,
+  ``random-greedy-128`` above.
 
 Besides opt_einsum's strategies, ``"native-greedy"`` is the C++ greedy
 optimizer of :mod:`..native` (built with ``g++`` at first use; it raises
@@ -42,6 +47,8 @@ import bisect
 import functools
 import heapq
 import itertools
+import math
+import random
 from collections import Counter, defaultdict
 from functools import lru_cache
 
@@ -217,13 +224,24 @@ branch_1 = functools.partial(branch, nbranch=1)
 # ------------------------------------------------------------------ greedy
 
 
+def _memory_removed(size12, size1, size2, rng):
+    """opt_einsum's default greedy cost, ``"memory-removed"``."""
+    return size12 - size1 - size2
+
+
+def _memory_removed_jitter(size12, size1, size2, rng):
+    """opt_einsum's ``"memory-removed-jitter"``: the same cost times a
+    ``gauss(1, 0.01)`` draw, which breaks ties and jumbles the order."""
+    return rng.gauss(1.0, 0.01) * (size12 - size1 - size2)
+
+
 def _greedy_candidate(output, sizes, remaining, footprints, dim_ref_counts,
-                      k1, k2):
+                      k1, k2, cost_fn=_memory_removed, rng=None):
     either = k1 | k2
     two = k1 & k2
     one = either - two
     k12 = (either & output) | (two & dim_ref_counts[3]) | (one & dim_ref_counts[2])
-    cost = _size(k12, sizes) - footprints[k1] - footprints[k2]
+    cost = cost_fn(_size(k12, sizes), footprints[k1], footprints[k2], rng)
     id1, id2 = remaining[k1], remaining[k2]
     if id1 > id2:
         k1, id1, k2, id2 = k2, id2, k1, id1
@@ -244,11 +262,17 @@ def _update_ref_counts(dim_to_keys, dim_ref_counts, dims):
             dim_ref_counts[3].add(dim)
 
 
-def ssa_greedy(inputs, output, sizes):
-    """opt_einsum's ``ssa_greedy_optimize`` with its default chooser and the
-    ``"memory-removed"`` cost; an SSA path.  Candidates are only formed
-    between operands sharing an index, so the search scales with the number
-    of operands per index, not with the operand count squared."""
+def ssa_greedy(inputs, output, sizes, choose_fn=None,
+               cost_fn=_memory_removed, rng=None):
+    """opt_einsum's ``ssa_greedy_optimize``; an SSA path.
+
+    By default it takes the candidate of least ``"memory-removed"`` cost.
+    ``choose_fn(queue, remaining, rng)`` replaces that choice (every
+    candidate is then queued, not only each operand's best), ``cost_fn``
+    the cost, and ``rng`` (a :class:`random.Random`) feeds both.
+    Candidates are only formed between operands sharing an index, so the
+    search scales with the number of operands per index, not with the
+    operand count squared."""
     if len(inputs) == 1:
         return [(0,)]
     fs_inputs = [frozenset(x) for x in inputs]
@@ -276,9 +300,14 @@ def ssa_greedy(inputs, output, sizes):
     footprints = {key: _size(key, sizes) for key in remaining}
 
     def push(k1, k2s):
-        heapq.heappush(queue, min(
-            _greedy_candidate(output, sizes, remaining, footprints,
-                              dim_ref_counts, k1, k2) for k2 in k2s))
+        candidates = (_greedy_candidate(output, sizes, remaining, footprints,
+                                        dim_ref_counts, k1, k2, cost_fn, rng)
+                      for k2 in k2s)
+        if choose_fn is None:
+            heapq.heappush(queue, min(candidates))
+        else:
+            for candidate in candidates:
+                heapq.heappush(queue, candidate)
 
     queue = []
     for dim_keys in dim_to_keys.values():
@@ -287,9 +316,15 @@ def ssa_greedy(inputs, output, sizes):
             push(k1, dim_keys[1 + i:])
 
     while queue:
-        _, k1, k2, k12 = heapq.heappop(queue)
-        if k1 not in remaining or k2 not in remaining:
-            continue  # obsolete candidate
+        if choose_fn is None:
+            _, k1, k2, k12 = heapq.heappop(queue)
+            if k1 not in remaining or k2 not in remaining:
+                continue  # obsolete candidate
+        else:
+            chosen = choose_fn(queue, remaining, rng)
+            if chosen is None:
+                continue  # every popped candidate was obsolete
+            _, k1, k2, k12 = chosen
         ssa_id1 = remaining.pop(k1)
         ssa_id2 = remaining.pop(k2)
         for dim in k1 - output:
@@ -329,6 +364,81 @@ def greedy(inputs, output, sizes, memory_limit=None):
     if memory_limit not in _UNLIMITED_MEM:
         return branch(inputs, output, sizes, memory_limit, nbranch=1)
     return ssa_to_linear(ssa_greedy(inputs, output, sizes))
+
+
+# ----------------------------------------------------------- random greedy
+
+
+def thermal_chooser(queue, remaining, rng):
+    """opt_einsum's ``thermal_chooser`` at ``RandomGreedy``'s defaults: draw
+    one of the 8 best live candidates with Boltzmann weights ``exp(-(c -
+    c_min) / T)``, ``T = max(1, |c_min|)``, and push the others back."""
+    choices = []
+    while queue and len(choices) < 8:
+        cost, k1, k2, k12 = heapq.heappop(queue)
+        if k1 in remaining and k2 in remaining:  # else obsolete
+            choices.append((cost, k1, k2, k12))
+    if len(choices) <= 1:
+        return choices[0] if choices else None
+    cmin = choices[0][0][0]
+    temperature = max(1, abs(cmin))
+    energies = [math.exp(-(c[0][0] - cmin) / temperature) for c in choices]
+    (chosen,) = rng.choices(range(len(choices)), weights=energies)
+    chosen = choices.pop(chosen)
+    for other in choices:
+        heapq.heappush(queue, other)
+    return chosen
+
+
+def ssa_path_compute_cost(ssa_path, inputs, output, sizes):
+    """FLOPs and largest intermediate of an SSA path (opt_einsum's cost)."""
+    inputs = list(map(frozenset, inputs))
+    output = frozenset(output)
+    remaining = set(range(len(inputs)))
+    total_cost = 0
+    max_size = 0
+    for i, j in ssa_path:
+        k12, flops12 = _calc_k12_flops(inputs, output, remaining, i, j, sizes)
+        remaining.discard(i)
+        remaining.discard(j)
+        remaining.add(len(inputs))
+        inputs.append(k12)
+        total_cost += flops12
+        max_size = max(max_size, _size(k12, sizes))
+    return total_cost, max_size
+
+
+def _trial_greedy(r, inputs, output, sizes):
+    """Trial ``r`` of the random greedy search: ``(ssa_path, flops, size)``.
+
+    Trial 0 takes the least cost (the jittered greedy path).  Each trial
+    draws from its own ``random.Random(r)``, whose ``choices`` and ``gauss``
+    give what opt_einsum's draw after ``random.seed(r)``, and the global
+    ``random`` state is left alone.
+    """
+    rng = random.Random(r)
+    ssa_path = ssa_greedy(inputs, output, sizes,
+                          None if r == 0 else thermal_chooser,
+                          _memory_removed_jitter, rng)
+    cost, size = ssa_path_compute_cost(ssa_path, inputs, output, sizes)
+    return ssa_path, cost, size
+
+
+def random_greedy(inputs, output, sizes, memory_limit=None, max_repeats=32):
+    """opt_einsum's ``RandomGreedy`` with its defaults (the
+    ``"memory-removed-jitter"`` cost, the thermal chooser, serial trials
+    ``0 .. max_repeats - 1``, the path of fewest FLOPs kept, ties to the
+    smaller intermediate, then to the earlier trial).  Like opt_einsum's,
+    it ignores ``memory_limit``."""
+    best = (float("inf"), float("inf"), None)
+    for r in range(max_repeats):
+        ssa_path, cost, size = _trial_greedy(r, inputs, output, sizes)
+        if (cost, size) < best[:2]:
+            best = (cost, size, ssa_path)
+    return ssa_to_linear(best[2])
+
+
+random_greedy_128 = functools.partial(random_greedy, max_repeats=128)
 
 
 # ------------------------------------------------------ dynamic programming
@@ -467,14 +577,11 @@ def auto(inputs, output, sizes, memory_limit=None):
 
 
 def auto_hq(inputs, output, sizes, memory_limit=None):
-    """opt_einsum's ``auto-hq`` up to 16 operands."""
+    """opt_einsum's ``auto-hq``: ``optimal`` for 1–5 operands, ``dp`` for
+    6–16, ``random-greedy-128`` above."""
     n = len(inputs)
-    if n > 16:
-        raise TNError(
-            f"'auto-hq' uses 'random-greedy-128' above 16 operands ({n} here), "
-            "which this package does not have; use 'auto', 'greedy' or 'dp'"
-        )
-    fn = optimal if n <= 5 else dynamic_programming
+    fn = (optimal if n <= 5 else dynamic_programming if n <= 16
+          else random_greedy_128)
     return fn(inputs, output, sizes, memory_limit)
 
 
@@ -490,6 +597,8 @@ STRATEGIES = {
     "opportunistic": greedy,
     "dp": dynamic_programming,
     "dynamic-programming": dynamic_programming,
+    "random-greedy": random_greedy,
+    "random-greedy-128": random_greedy_128,
 }
 
 
@@ -582,8 +691,10 @@ def find_path(terms, output, shapes, optimize, memory_limit):
 
             return tuple(native_greedy_path(terms, output, sizes))
         limit = _memory_arg(memory_limit, terms, output, sizes)
-        path = STRATEGIES[name]([set(t) for t in terms], set(output), sizes,
-                                limit)
+        # frozensets built as opt_einsum.contract_path builds them: the
+        # random trials draw in the iteration order of these sets
+        path = STRATEGIES[name]([frozenset(t) for t in terms],
+                                frozenset(output), sizes, limit)
         return tuple(tuple(step) for step in path)
 
 

@@ -254,11 +254,12 @@ def hotrg_log_z_diff(a, chi, steps=24):
     return log_z
 
 
-def ising_internal_energy_ad(beta, chi, steps=24, h_field=0.0):
+def ising_internal_energy_ad(beta, chi, steps=24, h_field=0.0, device=None):
     """Onsager-testable internal energy per site ``u = -d log Z / d beta``
-    by autodiff through the HOTRG flow (on ``cuda``; a host float)."""
+    by autodiff through the HOTRG flow (on ``device``, default ``cuda``; a
+    host float)."""
     b = torch.tensor(float(beta), dtype=torch.float64,
-                     device=resolve_device(None), requires_grad=True)
+                     device=resolve_device(device), requires_grad=True)
     log_z = hotrg_log_z_diff(ising_tensor_smooth(b, h_field), chi, steps)
     (grad,) = torch.autograd.grad(log_z, b)
     return float(-grad)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.stabilize import peinsum
-from ..utils.device import as_tensor, resolve_device
+from ..utils.device import as_tensor, resolve_device, torch_dtype
 from .boundary import apply_mpo_to_mps
 from .canonical import compress, compress_mpo, mps_add
 from .fermions2d import string_mpo
@@ -42,26 +42,31 @@ def _host(t):
     return t.detach().cpu().numpy()
 
 
-def _lift(mpo, right_side):
-    """``A rho`` (``W (x) I``) or ``rho A`` (``I (x) W^T``) as a complex128
-    superoperator MPO on the MPO's device."""
-    w = mpo.cores.to(_C128)
+def _lift(mpo, right_side, dtype=_C128):
+    """``A rho`` (``W (x) I``) or ``rho A`` (``I (x) W^T``) as a
+    superoperator MPO on the MPO's device: the cores cast to ``dtype``
+    (complex128 by default), then lifted in ``dtype`` promoted with float64
+    (as the JAX package lifts them against a float64 identity); the
+    boundary vectors in ``dtype``."""
+    dtype = torch_dtype(dtype)
+    wide = torch.promote_types(dtype, torch.float64)
+    w = mpo.cores.to(dtype).to(wide)
     n, d, _, wb, _ = w.shape
-    eye = torch.eye(d, dtype=_C128, device=w.device)
+    eye = torch.eye(d, dtype=wide, device=w.device)
     if right_side:
         out = peinsum("naAwv,sS->nsaSAwv", w.transpose(1, 2), eye)
     else:
         out = peinsum("nsSwv,aA->nsaSAwv", w, eye)
-    return MPO(out.reshape(n, d * d, d * d, wb, wb), mpo.left.to(_C128),
-               mpo.right.to(_C128))
+    return MPO(out.reshape(n, d * d, d * d, wb, wb), mpo.left.to(dtype),
+               mpo.right.to(dtype))
 
 
-def _lift_left(mpo):
-    return _lift(mpo, False)
+def _lift_left(mpo, dtype=_C128):
+    return _lift(mpo, False, dtype)
 
 
-def _lift_right(mpo):
-    return _lift(mpo, True)
+def _lift_right(mpo, dtype=_C128):
+    return _lift(mpo, True, dtype)
 
 
 def _dissipator_site(jump, adjoint=False):

@@ -125,14 +125,17 @@ def vectorized_operator_sum(n, op, phases, d=2, device=None):
                  for a in (cores, [1.0, 0.0], [0.0, 1.0])))
 
 
-def commutator_superop_mpo(h_mpo):
+def commutator_superop_mpo(h_mpo, dtype=torch.complex128):
     """The HERMITIAN commutator generator ``K vec(O) = vec([H, O])``
     (``K = H (x) I - I (x) H^T`` in the fused vectorization) — the
     adjoint Heisenberg generator divided by ``i``, so its spectrum is
     the set of TRANSITION frequencies ``E_n - E_m``.  This is what the
-    kernel-polynomial machinery expands in."""
-    lp = _lift_left(h_mpo)
-    lm = _lift_right(h_mpo)
+    kernel-polynomial machinery expands in.  ``dtype`` (a torch or numpy
+    dtype) rounds the Hamiltonian's entries; the MPO comes in ``dtype``
+    promoted with float64, as in the JAX package: a real dtype gives a real
+    MPO, ``complex64`` a complex128 one."""
+    lp = _lift_left(h_mpo, dtype)
+    lm = _lift_right(h_mpo, dtype)
     return mpo_sum(lp, MPO(lm.cores, -lm.left, lm.right))
 
 

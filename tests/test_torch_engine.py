@@ -138,8 +138,9 @@ def test_explicit_path_and_strategies():
     got_o = ttn.contract("ab,bc,cd->ad", *ops, optimize="optimal", device="cpu")
     ref_o = jtn.contract("ab,bc,cd->ad", *ops, optimize="optimal")
     np.testing.assert_allclose(got_o.numpy(), np.asarray(ref_o), rtol=RTOL)
-    with pytest.raises(ttn.TNError, match="not available"):
-        ttn.contract("ab,bc,cd->ad", *ops, optimize="random-greedy", device="cpu")
+    got_r = ttn.contract("ab,bc,cd->ad", *ops, optimize="random-greedy", device="cpu")
+    ref_r = jtn.contract("ab,bc,cd->ad", *ops, optimize="random-greedy")
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(ref_r), rtol=RTOL)
     with pytest.raises(ttn.TNError):
         ttn.contract("ab,bc,cd->ad", *ops, optimize=[(0, 1)], device="cpu")
 

@@ -257,3 +257,26 @@ def test_hubbard_loss_gradients_match_differences(cell):
               - float(loss(arg([p - h * d for p, d in zip(params, dirs)]), env)[0])) / (2 * h)
     dd = sum(float((g * d).sum()) for g, d in zip(grads, dirs))
     assert abs(dd - fd) < 1e-6 * max(1.0, abs(fd))
+
+
+def test_hubbard_cell_correlator_matches_jax():
+    """The checkerboard row correlators of the spinful fermionic cell (the
+    staggered ``<Sz_0 Sz_r>`` of ``examples/hubbard_ipeps.py``), on shared
+    random parity-masked sites: the environments are held through the
+    gauge-invariant correlators, connected and not, at 1e-10."""
+    rng = np.random.default_rng(29)
+    mask = tfi.parity_mask_site(PARS, d=4, phys_par=tfs.PHYS_PAR, device=CPU).numpy()
+    a, b = (rng.normal(size=(4,) + (2,) * 4) * mask for _ in range(2))
+    sz = np.asarray(jfs.SZ)
+    assert np.array_equal(np.asarray(tfs.SZ), sz)
+    jsites = ((a, b), (b, a))
+    tsites = tuple(tuple(torch.from_numpy(s) for s in col) for col in jsites)
+    jenv = jfs.hubbard_cell_env(jsites, PARS, 4, iters=12)
+    tenv = tfs.hubbard_cell_env(tsites, PARS, 4, iters=12)
+    for connected in (True, False):
+        want = jfs.hubbard_cell_correlator(jsites, PARS, jenv, sz, sz, [1, 2, 3],
+                                           connected=connected)
+        got = tfs.hubbard_cell_correlator(tsites, PARS, tenv, sz, sz, [1, 2, 3],
+                                          connected=connected)
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=1e-12)
+

@@ -120,3 +120,24 @@ def test_daoe_and_thermal_kpm_match_jax():
     psi = _site(np.kron(Z, np.eye(2)), 1) @ (psi / np.linalg.norm(psi))
     kd = _dense_op(*mpo_to_numpy(to.commutator_superop_mpo(th)))
     _close(got, _cheb(kd, psi, a, b, 4))
+
+
+def test_commutator_superop_mpo_dtype_matches_jax():
+    """``dtype=`` as in the JAX package: the entries are rounded to it and
+    the MPO comes in it promoted with float64 (a real dtype gives a real
+    MPO, complex64 a complex128 one); cores, left and right agree."""
+    import jax.numpy as jnp
+    import torch
+
+    jmpo = import_module("contractn_tpu.models.mpo")
+    tmpo = import_module("contractn_tpu_torch.models.mpo")
+    jh = jmpo.mpo_from_bond_term(MIXED, N)
+    th = tmpo.mpo_from_bond_term(MIXED, N, device="cpu")
+    for jdt, tdt in ((jnp.float64, torch.float64), (jnp.complex64, torch.complex64)):
+        jk = jo.commutator_superop_mpo(jh, dtype=jdt)
+        tk = to.commutator_superop_mpo(th, dtype=tdt)
+        for want, got in zip((jk.cores, jk.left, jk.right), (tk.cores, tk.left, tk.right)):
+            assert got.numpy().dtype == np.asarray(want).dtype
+            _close(got.numpy(), np.asarray(want))
+    assert to.commutator_superop_mpo(th, dtype=torch.float64).cores.dtype == torch.float64
+    assert to.commutator_superop_mpo(th).cores.dtype == torch.complex128

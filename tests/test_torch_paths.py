@@ -78,14 +78,73 @@ def test_aliases_and_departures():
     assert find_path(*args, "eager", None) == find_path(*args, "greedy", None)
     assert find_path(*args, "dynamic-programming", None) == find_path(*args, "dp", None)
     for name in ("random-greedy", "random-greedy-128"):
-        with pytest.raises(ttn.TNError, match="not available"):
-            find_path(*args, name, None)
-    eq, terms, output, shapes = _network(17, 0)
-    with pytest.raises(ttn.TNError, match="random-greedy-128"):
-        find_path(tuple(terms), output, tuple(shapes), "auto-hq", None)
+        _check(name, 6, 3)
+    _check("auto-hq", 17, 0)  # random-greedy-128 above 16 operands
 
 
-@pytest.mark.parametrize("strategy", ["auto", "optimal", "branch-all", "dp"])
+@pytest.mark.parametrize("strategy", ["random-greedy", "random-greedy-128"])
+def test_random_greedy_matches_opt_einsum(strategy):
+    """Each trial draws from its own ``random.Random(r)``: the same draws as
+    opt_einsum's after ``random.seed(r)``, so the same path, on networks
+    of 3 to 8 operands; the global ``random`` state is left alone."""
+    import random
+
+    state = random.getstate()
+    for n_ops, seed in SMALL[:6]:
+        eq, terms, output, shapes = _network(n_ops, seed)
+        find_path.cache_clear()
+        random.setstate(state)
+        path = find_path(tuple(terms), output, tuple(shapes), strategy, None)
+        assert random.getstate() == state
+        _check(strategy, n_ops, seed)
+        assert find_path.__wrapped__(tuple(terms), output, tuple(shapes),
+                                     strategy, None) == path
+
+
+@pytest.mark.parametrize("n_ops, seed", [(17, 1), (20, 2), (60, 3), (130, 4)])
+def test_random_greedy_trials_match_opt_einsum(n_ops, seed):
+    """Trial by trial, not only the best of many: trial ``r`` returns the
+    SSA path, FLOPs and largest intermediate of opt_einsum's
+    ``_trial_greedy_ssa_path_and_cost(r, ...)`` with ``RandomGreedy``'s
+    default chooser and cost."""
+    from opt_einsum.path_random import RandomGreedy, _trial_greedy_ssa_path_and_cost
+
+    from contractn_tpu_torch.compiler.paths import _trial_greedy
+
+    eq, terms, output, shapes = _network(n_ops, seed)
+    sizes = {}
+    for term, shape in zip(terms, shapes):
+        sizes.update(zip(term, shape))
+    inputs, out = [frozenset(t) for t in terms], frozenset(output)
+    opt = RandomGreedy()
+    for r in range(8):
+        ssa, cost, size = _trial_greedy(r, inputs, out, sizes)
+        ref_ssa, ref_cost, ref_size = _trial_greedy_ssa_path_and_cost(
+            r, inputs, out, sizes, opt.choose_fn, opt.cost_fn)
+        assert [tuple(p) for p in ssa] == [tuple(p) for p in ref_ssa], (eq, r)
+        assert (cost, size) == (ref_cost, ref_size), (eq, r)
+
+
+@pytest.mark.parametrize("n_ops, seed", [(17, 1), (20, 2)])
+def test_auto_hq_above_16_operands_matches_opt_einsum(n_ops, seed):
+    """``auto-hq`` takes ``random-greedy-128`` above 16 operands: the path
+    equals opt_einsum's, and the contracted value the JAX package's."""
+    _check("auto-hq", n_ops, seed)
+    eq, terms, output, shapes = _network(n_ops, seed)
+    assert find_path(tuple(terms), output, tuple(shapes), "auto-hq", None) == \
+        find_path(tuple(terms), output, tuple(shapes), "random-greedy-128", None)
+    rng = np.random.default_rng(seed)
+    ops = [rng.standard_normal(s) for s in shapes]
+    mj, lj = jtn.contract(eq, *ops, split_format=True, optimize="auto-hq")
+    mt, lt = ttn.contract(eq, *ops, split_format=True, optimize="auto-hq",
+                          device="cpu")
+    np.testing.assert_allclose(mt.numpy() * np.exp(lt.numpy()),
+                               np.asarray(mj) * np.exp(np.asarray(lj)),
+                               rtol=1e-10, atol=1e-13)
+
+
+@pytest.mark.parametrize("strategy", ["auto", "optimal", "branch-all", "dp",
+                                      "random-greedy", "random-greedy-128"])
 def test_contract_values_match_jax(strategy):
     eq, terms, output, shapes = _network(6, 11)
     rng = np.random.default_rng(4)

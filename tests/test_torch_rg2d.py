@@ -146,6 +146,7 @@ def test_hotrg_autodiff_matches_jax(ref, monkeypatch):
     package's ``jax.grad`` through the same flow."""
     val = th.hotrg_log_z_diff(th.ising_tensor_smooth(0.4, device=CPU), chi=8, steps=16)
     assert abs(float(val) - ref["hotrg_diff"]) < TOL
+    assert abs(th.ising_internal_energy_ad(0.4, 8, 16, device=CPU) - ref["u_ad"]) < TOL
     monkeypatch.setattr(th, "resolve_device",
                         lambda device=None, tensors=(): torch.device(device or "cpu"))
     assert abs(th.ising_internal_energy_ad(0.4, 8, 16) - ref["u_ad"]) < TOL
