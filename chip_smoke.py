@@ -16,20 +16,24 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    shorter than a site (d 3 at D 120, d 20 at D 24) and x read in place
    (d 900), each for the closing chain (#1) and the carry-returning one (#2,
    float32 and bfloat16 carry); MPO with W 1, 2, 4, 5 (Heisenberg) and 8,
-   one core buffer where two do not fit, and the exact-D path where no
-   tensor-core tier fits (d 2, W 7, D 50; d 1, W 9, D 55), each asserting
-   which of the MPO kernel's paths launched;
+   one core buffer where two do not fit, and the cluster path where no
+   one-CTA plan fits (d 2, W 7, D 50; d 1, W 9, D 55; Heisenberg at D 65,
+   96 and 128; spin-1 Heisenberg at D 128; d 2, W 8, D 64; d 1, W 16,
+   D 100), each asserting which of the MPO kernel's paths launched;
 4. main path through the user entry points: the three README examples
    through ``examples/torch/readme_examples.py``, the flagship batched ``MPS.evaluate`` (1000 sites x d 2
    x bond 64 x batch 4096, float32), the carry-returning evaluation at the
-   same shape and the batched TFIM MPO expectation (50 sites x bond 64 x
-   1000 parameter sets); each kernel's launch count is zeroed just before
-   its path and read just after, and a small sample of each is held against
-   a float64 reference;
+   same shape, the batched TFIM MPO expectation (50 sites x bond 64 x
+   1000 parameter sets) and the Heisenberg one at bond 128 (50 sites x
+   1000 samples, #3's cluster path: ``cluster_main_path``); each kernel's
+   launch count is zeroed just before its path and read just after, and a
+   small sample of each is held against a float64 reference;
 5. times: each kernel and its plain version with CUDA events (median of 7
    after a warm-up), beside the least time the card could take for
    fp32-accurate work (GEMMs as 3xTF32 on the tensor cores): #2 under both
-   carries, and #3's exact-D path at a restored shape;
+   carries, and #3's cluster path at the shape the exact-D kernel last
+   timed (d 2, W 7, D 50) and at full width (Heisenberg, D 128, 50 sites,
+   1000 samples);
 6. training paths at the JAX package's published widths: 3 log-MSE SGD
    steps (``make_train_step``) at 512 sites x d 2 x bond 64 x batch 1024 in
    bfloat16 and float32, the float32 step-0 gradient against float64, the
@@ -156,7 +160,13 @@ last ``{"ok": true, "device": {...}}``.  ``--physics-only``
 prints neither.  ``--examples-only [name ...]`` runs phases 1 and 2, then
 every ``examples/torch/*.py`` script (or those named) on the card, each in
 its own process (``examples_phase``), and ends with the ``{"ok": true,
-...}`` line.  Without a GPU, or without the
+...}`` line.  ``--mpo-times [CHECKOUT [TAG ...]]`` runs phase 1, then times
+#3 with the ``contractn_tpu_torch`` of another checkout (default this one)
+at ``MPO_TIMED``'s shapes (or the tagged ones), one JSON line each with the
+path that launched
+(``mpo_times``): two versions of the kernel on one card in one call, the
+other unpacked into a directory that ``.gitignore`` lists (``git
+archive``), run parent, change, change, parent.  Without a GPU, or without the
 package beside this file, it exits nonzero and prints no result.
 """
 
@@ -195,13 +205,36 @@ REACH_MPO = (
     {"n_sites": 5, "bond": 64, "batch": 16, "mpo": (3, 1)},
     {"n_sites": 5, "bond": 40, "batch": 16, "mpo": (1, 8)},  # W 8
 )
-# Shapes no tensor-core tier of the MPO kernel holds, in either dtype: its
-# exact-D path runs them
+# Shapes no one-CTA plan of the MPO kernel holds, in either dtype: the
+# FMA exact-D kernel took these until its cluster path replaced it
 EXACT_MPO = (
-    {"n_sites": 5, "bond": 50, "batch": 16, "mpo": (2, 7), "path": "exact"},
-    {"n_sites": 5, "bond": 55, "batch": 16, "mpo": (1, 9), "path": "exact"},
+    {"n_sites": 5, "bond": 50, "batch": 16, "mpo": (2, 7), "path": "cluster"},
+    {"n_sites": 5, "bond": 55, "batch": 16, "mpo": (1, 9), "path": "cluster"},
 )
-EXACT_BENCH = {"n_sites": 50, "bond": 50, "batch": 1000, "mpo": (2, 7)}
+EXACT_BENCH = {"n_sites": 50, "bond": 50, "batch": 1000, "mpo": (2, 7), "path": "cluster"}
+# The cluster path's reach beyond D 64 and the shapes the card refused
+# before it: Heisenberg (W 5) up to D 128, spin-1 Heisenberg (d 3, W 5,
+# d*W 15) at D 128, d 2 with W 8 at D 64, d 1 with W 16 at D 100, d 1
+# with W 3 at D 65.  A bf16 comparison counts only the samples whose close
+# is conditioned within 1 / TOL_BF16: the Heisenberg shapes take 64 samples
+# (with 16, one or two qualified at D 65-128), and the spin-1 chain is held
+# in fp32 only (none of its 16 samples qualified in bf16, median condition
+# 104), d 3 with W 5 in both dtypes on the random diagonal MPO instead.
+CLUSTER_MPO = (
+    {"n_sites": 5, "bond": 65, "batch": 64, "mpo": "heisenberg", "path": "cluster"},
+    {"n_sites": 5, "bond": 96, "batch": 64, "mpo": "heisenberg", "path": "cluster"},
+    {"n_sites": 5, "bond": 128, "batch": 64, "mpo": "heisenberg", "path": "cluster"},
+    {"n_sites": 5, "bond": 128, "batch": 16, "mpo": "heisenberg_s1", "path": "cluster",
+     "dtypes": (torch.float32,)},
+    {"n_sites": 5, "bond": 128, "batch": 16, "mpo": (3, 5), "path": "cluster"},
+    {"n_sites": 5, "bond": 64, "batch": 16, "mpo": (2, 8), "path": "cluster"},
+    {"n_sites": 5, "bond": 100, "batch": 16, "mpo": (1, 16), "path": "cluster"},
+    {"n_sites": 5, "bond": 65, "batch": 16, "mpo": (1, 3), "path": "cluster"},
+)
+# #3 at full width on the cluster path: the Heisenberg chain at kernel #1's
+# and the DMRG runs' bond (6.55 GB of fp32 cores)
+CLUSTER_BENCH = {"n_sites": 50, "bond": 128, "batch": 1000, "mpo": "heisenberg",
+                 "path": "cluster"}
 # Training paths at the JAX package's published widths: the log-MSE SGD step
 # (bench.py:224-267) and the Born machine's exact-NLL Adam step
 # (bench.py:270-300); 511 sites is the odd length whose loss runs one site a
@@ -879,7 +912,8 @@ def mpo_inputs(shape, device, dtype, seed):
     """A uniform MPO, per-sample MPS cores and a ones boundary.
 
     ``shape["mpo"]`` names the MPO: ``"tfim"`` (W 3, the default),
-    ``"heisenberg"`` (W 5), or ``(d, W)`` for a random uniform one that is
+    ``"heisenberg"`` (W 5), ``"heisenberg_s1"`` (spin 1, d 3, W 5), or
+    ``(d, W)`` for a random uniform one that is
     diagonal in the physical index with nonnegative entries and boundaries,
     so that the environments stay positive semidefinite and their close is
     well conditioned enough to compare at bf16 precision.
@@ -889,7 +923,7 @@ def mpo_inputs(shape, device, dtype, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     n, bond, batch = shape["n_sites"], shape["bond"], shape["batch"]
     kind = shape.get("mpo", "tfim")
-    d = kind[0] if isinstance(kind, tuple) else 2
+    d = kind[0] if isinstance(kind, tuple) else 3 if kind == "heisenberg_s1" else 2
     scale = 1.0 / math.sqrt(d * bond)
     cores = (scale * torch.randn((batch, n, d, bond, bond), generator=gen,
                                  device=device)).to(dtype)
@@ -898,6 +932,8 @@ def mpo_inputs(shape, device, dtype, seed):
         mpo = tfim_mpo(n, dtype=torch.float32, device=device)
     elif kind == "heisenberg":
         mpo = heisenberg_mpo(n, dtype=torch.float32, device=device)
+    elif kind == "heisenberg_s1":
+        mpo = spin1_heisenberg_mpo(n, device)
     else:
         wdim = kind[1]
         core = torch.zeros((d, d, wdim, wdim), device=device)
@@ -910,6 +946,24 @@ def mpo_inputs(shape, device, dtype, seed):
 
 
 # ---------------------------------------------------------------- phases
+
+
+def spin1_heisenberg_mpo(n, device):
+    """The spin-1 Heisenberg chain ``sum S.S`` as a uniform real MPO (d 3,
+    W 5): ``S.S = Sz Sz + (S+ S- + S- S+) / 2``."""
+    from contractn_tpu_torch.models import MPO
+    from contractn_tpu_torch.models.autompo import spin_ops
+
+    ops = {k: torch.tensor(v, dtype=torch.float32, device=device)
+           for k, v in spin_ops(1).items() if k in ("I", "Sz", "S+", "S-")}
+    core = torch.zeros((3, 3, 5, 5), device=device)
+    core[:, :, 0, 0] = ops["I"]
+    core[:, :, 4, 4] = ops["I"]
+    core[:, :, 0, 1], core[:, :, 1, 4] = ops["S+"], 0.5 * ops["S-"]
+    core[:, :, 0, 2], core[:, :, 2, 4] = ops["S-"], 0.5 * ops["S+"]
+    core[:, :, 0, 3], core[:, :, 3, 4] = ops["Sz"], ops["Sz"]
+    ends = torch.eye(5, device=device)
+    return MPO(core.expand(n, -1, -1, -1, -1).contiguous(), ends[0], ends[4])
 
 
 def phase_device():
@@ -967,7 +1021,7 @@ def ptxas_report(text):
 
 def _demangle(name):
     """A short readable name for a mangled kernel template instance."""
-    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mpo_env_exact_kernel)", name)
+    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mpo_env_cluster_kernel)", name)
     args = re.findall(r"L[ib](\d+)E", name)
     dtype = "bf16" if "nv_bfloat16" in name else "f32"
     return f"{base.group(1) if base else name}<{','.join([dtype, *args])}>"
@@ -981,15 +1035,23 @@ def kernel_smem(device):
     mps = cuda_mps.tc_library()
     mpo = cuda_mpo.library()
     d, bond = FLAGSHIP["phys"], FLAGSHIP["bond"]
-    mpo_shapes = [(2, MPO_BENCH["bond"], 3)]
-    mpo_shapes += [(s["mpo"][0], s["bond"], s["mpo"][1]) for s in EXACT_MPO]
+    mpo_shapes = [(*mpo_dims(s), s["bond"]) for s in (MPO_BENCH, *EXACT_MPO, *CLUSTER_MPO)]
     for bf16, tag in ((0, "fp32"), (1, "bf16")):
         log(f"  #1 and #2 (one layout) {tag} d={d} D={bond}: "
             f"{mps.cn_mps_evaluate_smem(bf16, d, bond)} bytes dynamic shared memory")
-        for p, b, w in mpo_shapes:
+        for p, w, b in mpo_shapes:
             path = cuda_mpo.PATHS[mpo.cn_mpo_env_path(bf16, p, b, w)]
+            padded = (f", bond padded to {mpo.cn_mpo_env_bond(bf16, p, b, w)}"
+                      if path == "cluster" else "")
             log(f"  #3 cn_mpo_env {tag} d={p} D={b} W={w}: {path} path, "
-                f"{mpo.cn_mpo_env_smem(bf16, p, b, w)} bytes dynamic shared memory")
+                f"{mpo.cn_mpo_env_cluster(bf16, p, b, w)} CTA(s) a sample{padded}, "
+                f"{mpo.cn_mpo_env_smem(bf16, p, b, w)} bytes dynamic shared memory a CTA")
+
+
+def mpo_dims(shape):
+    """``(d, W)`` of the MPO that ``shape["mpo"]`` names."""
+    kind = shape.get("mpo", "tfim")
+    return {"tfim": (2, 3), "heisenberg": (2, 5), "heisenberg_s1": (3, 5)}.get(kind, kind)
 
 
 def phase_kernels_vs_plain(device):
@@ -1005,12 +1067,19 @@ def phase_kernels_vs_plain(device):
                 errors["mps_evaluate"], errors["mps_evaluate_epilogue"] = err1, err2
     mpo_shapes = [(tag, shape) for tag, shape in
                   (("small", SMALL_MPO), ("ragged", RAGGED_MPO), ("main", MPO_BENCH))]
-    mpo_shapes += [(f"{s['mpo']} D={s['bond']}", s) for s in REACH_MPO + EXACT_MPO]
+    mpo_shapes += [(f"{s['mpo']} D={s['bond']}", s)
+                   for s in REACH_MPO + EXACT_MPO + CLUSTER_MPO]
     for tag, shape in mpo_shapes:
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            if dtype not in shape.get("dtypes", (dtype,)):
+                continue
             err = compare_mpo_env(shape, device, dtype, tol, f"#3 mpo_env {tag} {dtype}")
             if tag == "main" and dtype == torch.float32:
                 errors["mpo_env"] = err
+            if dtype == torch.float32:  # the timed cluster shapes' (d, W, D)
+                for key, bench in CLUSTER_TIMED.items():
+                    if (mpo_dims(shape), shape["bond"]) == (mpo_dims(bench), bench["bond"]):
+                        errors[key] = err
     return errors
 
 
@@ -1137,22 +1206,12 @@ def main_path(device, flagship=FLAGSHIP, mpo_shape=MPO_BENCH, check=16):
     Each path runs with every launch count zeroed just before it and read
     just after; ``check`` samples of each are held against float64.
     """
-    from contractn_tpu_torch.models import MPO, MPS
-    from contractn_tpu_torch.ops import mps_evaluate, mpo_expectation_cuda
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.ops import mps_evaluate
     from contractn_tpu_torch.ops.cuda_epilogue import mps_evaluate_epilogue
-    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries, mpo_env_plain
 
     runs = {}
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-
-    def drive(name, fn):
-        reset_counters()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        runs[name] = (read_counters(), time.perf_counter() - t0)
-        return out
-
+    drive = _drive_into(runs, device)
     drive("readme", lambda: readme_examples(device))
 
     n, d, bond, batch = (flagship[k] for k in ("n_sites", "phys", "bond", "batch"))
@@ -1168,20 +1227,54 @@ def main_path(device, flagship=FLAGSHIP, mpo_shape=MPO_BENCH, check=16):
                       lambda: mps_evaluate_epilogue(mps.cores, mps.left, mps.right, x))
     _check_reference("mps_evaluate_epilogue", (amp2, lg2), ref, batch, cond)
 
-    mpo, cores, ones = mpo_inputs(mpo_shape, device, torch.float32, seed=4)
-    val, lv = drive("mpo_expectation",
-                    lambda: mpo_expectation_cuda(mpo, cores, ones, ones))
+    mpo_expectation_path(drive, "mpo_expectation", device, mpo_shape, check)
+    return runs
+
+
+def cluster_main_path(device, shape=CLUSTER_BENCH, check=16):
+    """#3's cluster path as a user reaches it: the batched Heisenberg
+    expectation at bond 128 (``shape``), its launch counts zeroed just
+    before and read just after; returns ``{path: (counts, seconds)}``."""
+    runs = {}
+    mpo_expectation_path(_drive_into(runs, device), "mpo_expectation_cluster", device, shape, check)
+    return runs
+
+
+def _drive_into(runs, device):
+    """``drive(name, fn)``: run ``fn`` with every launch count zeroed just
+    before and read just after, into ``runs[name] = (counts, seconds)``."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def drive(name, fn):
+        reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        runs[name] = (read_counters(), time.perf_counter() - t0)
+        return out
+
+    return drive
+
+
+def mpo_expectation_path(drive, name, device, shape, check, seed=4):
+    """``mpo_expectation_cuda`` at ``shape`` through ``drive``; its first
+    ``check`` samples held against float64 ``MPO.expectation``."""
+    from contractn_tpu_torch.models import MPO, MPS
+    from contractn_tpu_torch.ops import mpo_expectation_cuda
+    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries, mpo_env_plain
+
+    mpo, cores, ones = mpo_inputs(shape, device, torch.float32, seed=seed)
+    val, lv = drive(name, lambda: mpo_expectation_cuda(mpo, cores, ones, ones))
     mpo64 = MPO(mpo.cores.double(), mpo.left.double(), mpo.right.double())
     refs = [mpo64.expectation(MPS(c.double(), ones.double(), ones.double()))
             for c in cores[:check]]
     ref_mpo = (torch.stack([r[0] for r in refs]), torch.stack([r[1] for r in refs]))
-    wdim, bond = mpo.cores.shape[3], mpo_shape["bond"]
+    wdim, bond = mpo.cores.shape[3], shape["bond"]
     env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
     env, _ = mpo_env_plain(cores[:check], env0, mpo_entries(mpo), wdim)
     weight = torch.einsum("w,i,k->wik", mpo.right, ones, ones).reshape(-1)
-    _check_reference("batched MPO expectation", (val, lv), ref_mpo, mpo_shape["batch"],
+    _check_reference(f"batched MPO expectation ({name})", (val, lv), ref_mpo, shape["batch"],
                      condition(env.reshape(env.shape[0], -1) * weight))
-    return runs
 
 
 def _check_reference(what, got, ref, batch, cond):
@@ -4526,7 +4619,8 @@ def par_cv_path(device, smi, cfg, runs, meshes):
 
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
-    under both carries, and #3's exact-D path at a shape only it takes."""
+    under both carries, and #3's cluster path at the shapes of
+    ``CLUSTER_TIMED``."""
     from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
 
     out = {}
@@ -4554,24 +4648,31 @@ def phase_times(device):
             *bound_ms(gemm, elem, in_bytes - 4 * bond + out_bytes),
         )
     out["mpo_env"] = time_mpo_env(MPO_BENCH, device, "tensor_core")
-    out[f"mpo_env, exact-D path, {EXACT_BENCH}"] = time_mpo_env(EXACT_BENCH, device, "exact")
+    for key, shape in CLUSTER_TIMED.items():
+        out[key] = time_mpo_env(shape, device, "cluster")
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {bms:.3f} ms ({by})")
     return out
 
 
+def mpo_env_operands(shape, device, dtype):
+    """``(cores, env0, entries, wdim)`` for a direct call of kernel #3 at
+    ``shape`` (``mpo_inputs`` from seed 6 with a ones boundary)."""
+    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
+
+    mpo, cores, ones = mpo_inputs(shape, device, dtype, seed=6)
+    env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, shape["bond"])
+    return cores, env0, mpo_entries(mpo), mpo.cores.shape[3]
+
+
 def time_mpo_env(shape, device, path):
     """Kernel #3 and its plain version at ``shape``, float32, with the bound;
     the kernel must run on ``path``."""
     from contractn_tpu_torch.ops import cuda_mpo
-    from contractn_tpu_torch.ops.cuda_mpo import mpo_entries
 
-    mpo, cores, ones = mpo_inputs(shape, device, torch.float32, seed=6)
-    wdim, bond = mpo.cores.shape[3], shape["bond"]
-    env0 = torch.einsum("w,i,k->wik", mpo.left, ones, ones).reshape(-1, bond)
-    entries = mpo_entries(mpo)
-    b, n, d = shape["batch"], shape["n_sites"], cores.shape[2]
+    cores, env0, entries, wdim = mpo_env_operands(shape, device, torch.float32)
+    b, n, d, bond = shape["batch"], shape["n_sites"], cores.shape[2], shape["bond"]
     before = cuda_mpo.mpo_env.launches_by_path[path]
     ms = cuda_time(lambda: cuda_mpo.mpo_env(cores, env0, entries, wdim))
     assert cuda_mpo.mpo_env.launches_by_path[path] > before, f"the {path} path did not launch"
@@ -4585,6 +4686,45 @@ def time_mpo_env(shape, device, path):
                   4 * (cores.numel() + env0.numel() + b * (wdim * bond * bond + 1))),
     )
 
+
+# #3's cluster path in phase 5 and in the kernels line, by name
+CLUSTER_TIMED = {"mpo_env, cluster path, d=2 W=7 D=50": EXACT_BENCH,
+                 "mpo_env, cluster path, Heisenberg D=128": CLUSTER_BENCH}
+# --mpo-times: (tag, shape, dtype) at which #3 is timed on one checkout
+MPO_TIMED = (
+    ("exact_bench", EXACT_BENCH, torch.float32),
+    *(("exact_mpo", s, dt) for s in EXACT_MPO for dt in (torch.float32, torch.bfloat16)),
+    ("cluster_bench", CLUSTER_BENCH, torch.float32),
+    ("mpo_bench", MPO_BENCH, torch.float32),
+)
+
+
+def mpo_times(smi, root, tags=()):
+    """Kernel #3 of the checkout ``root`` at each shape of ``MPO_TIMED`` (or
+    those whose tag is in ``tags``; CUDA events, median of 7 after a warm-up
+    that also builds it), logged
+    as one JSON line each with the path that launched, the card and the
+    versions.  The inputs are this script's, so two checkouts see the same
+    cores."""
+    from contractn_tpu_torch.ops import cuda_mpo
+
+    if not Path(cuda_mpo.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {cuda_mpo.__file__}, not the package in {root}")
+    device = torch.device("cuda", 0)
+    for tag, shape, dtype in MPO_TIMED:
+        if tags and tag not in tags:
+            continue
+        cores, env0, entries, wdim = mpo_env_operands(shape, device, dtype)
+        before = dict(cuda_mpo.mpo_env.launches_by_path)
+        ms = cuda_time(lambda: cuda_mpo.mpo_env(cores, env0, entries, wdim))
+        path = [p for p, k in cuda_mpo.mpo_env.launches_by_path.items() if k > before[p]]
+        log(json.dumps({
+            "shape": tag, "d": cores.shape[2], "W": wdim, "D": shape["bond"],
+            "n_sites": shape["n_sites"], "batch": shape["batch"],
+            "dtype": str(dtype).replace("torch.", ""), "path": path, "ms": ms,
+            "root": root.name, "card": smi, "torch": torch.__version__,
+            "cuda": torch.version.cuda}))
+        del cores
 
 SOURCES = {
     "mps_evaluate": ("contractn_tpu_torch/csrc/mps_chain_tc.cu",
@@ -4696,6 +4836,14 @@ def examples_phase(device, smi, names=()):
         raise AssertionError(f"examples failed: {failed}")
 
 
+def log_phase(n, t0, header):
+    """Log phase ``n``'s seconds since ``t0`` and the next phase's header;
+    returns the next phase's start."""
+    log(f"phase {n}: {time.perf_counter() - t0:.1f} s")
+    log(f"== {header}")
+    return time.perf_counter()
+
+
 def main():
     if not (ROOT / "contractn_tpu_torch" / "__init__.py").is_file():
         fail(f"no contractn_tpu_torch package beside {Path(__file__).name}; "
@@ -4703,8 +4851,13 @@ def main():
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
     log("== 1. device")
-    smi, name = phase_device()
+    smi, card = phase_device()
     device = torch.device("cuda", 0)
+    if len(sys.argv) >= 2 and sys.argv[1] == "--mpo-times":
+        root = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT
+        sys.path.insert(0, str(root))
+        mpo_times(smi, root, sys.argv[3:])
+        return
     log("== 2. build")
     phase_build()
     kernel_smem(device)
@@ -4719,12 +4872,14 @@ def main():
         examples_phase(device, smi, sys.argv[2:])
         log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
         print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+            "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
         return
     log("== 3. kernels against their plain versions")
+    t3 = time.perf_counter()
     errors = phase_kernels_vs_plain(device)
-    log("== 4. main path")
+    t4 = log_phase(3, t3, "4. main path")
     runs = main_path(device)
+    runs.update(cluster_main_path(device))
     for path, (counts, secs) in runs.items():
         log(f"  path {path}: {secs:.3f} s, launches {counts}")
     for kernel, path in PATH_OF.items():
@@ -4733,26 +4888,36 @@ def main():
             raise AssertionError(f"the {path} path never launched kernel {kernel}")
     if runs["mpo_expectation"][0]["mpo_env.tensor_core"] < 1:
         raise AssertionError("the MPO main path did not run #3's tensor-core path")
-    log("== 5. times")
+    if runs["mpo_expectation_cluster"][0]["mpo_env.cluster"] < 1:
+        raise AssertionError("the bond-128 MPO path did not run #3's cluster path")
+    t5 = log_phase(4, t4, "5. times")
     times = phase_times(device)
     kernels = []
-    for kernel, (source, replaces) in SOURCES.items():
-        ms, plain, bms, by = times[kernel]
+    # (name, kernel, the run and the counter that hold its launches)
+    entries = [(kernel, kernel, PATH_OF[kernel], kernel) for kernel in SOURCES
+               if kernel != "mpo_env"]
+    entries.append(("mpo_env", "mpo_env", "mpo_expectation", "mpo_env.tensor_core"))
+    entries += [(key, "mpo_env", "mpo_expectation_cluster", "mpo_env.cluster")
+                for key in CLUSTER_TIMED]
+    for name, kernel, path, counter in entries:
+        source, replaces = SOURCES[kernel]
+        ms, plain, bms, by = times[name]
         kernels.append({
-            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": runs[PATH_OF[kernel]][0][kernel],
-            "max_abs_err": errors[kernel], "ms": ms, "plain_ms": plain,
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": runs[path][0][counter],
+            "max_abs_err": errors[name], "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
         })
-    log("== 6. training paths")
+    t6 = log_phase(5, t5, "6. training paths")
     for path, (counts, secs) in training_paths(device, smi).items():
         log(f"  path {path}: {secs:.3f} s, launches {counts}")
-    log("== 7. graph paths")
+    t7 = log_phase(6, t6, "7. graph paths")
     for path, (counts, secs) in graph_paths(device, smi).items():
         log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
-    log("== 8. finite chains")
+    t8 = log_phase(7, t7, "8. finite chains")
     for path, (counts, secs) in finite_chains(device, smi).items():
         log(f"  path {path}: {secs:.3f} s ({smi}), launches {counts}")
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s")
     physics_phase(device, smi)
     infinite_phase(device, smi)
     two_d_phase(device, smi)
@@ -4762,7 +4927,7 @@ def main():
     log(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -70,18 +70,72 @@
 //     operand layout asks for D * sizeof(T) to be a multiple of 16 bytes;
 //     the wrapper pads the bond with zeros otherwise (ops/cuda_mpo.py).
 //
-// Exact-D path (mpo_env_exact_kernel), for the shapes the tensor-core tiers
-// do not hold: 33 <= D <= 64 where d*W ket blocks padded to 64 rows do not
-// fit beside E and a core buffer (for example d = 2 with W = 6..8, d = 1
-// with W = 9..16), up to D = 62 or so.  It holds every operand at exactly D,
-// fp32, on the FMA units (67 TFLOP/s, not the tensor cores): E (W*D, D+1),
-// t (d*W, D, D), the core (d, D, D) read synchronously each site; a 16 x 16
-// thread grid, each thread a 4 x 4 tile of every D x D product (D <= 64);
-// the same four steps, casts, mix and rescale as above.  One C function
-// (path_for, exported as cn_mpo_env_path) picks the path from the shape
-// before the launch: the tensor-core path wherever a plan of it fits, the
-// exact-D path where only it fits, neither beyond.  A failed launch of one
-// path is never retried on the other.
+// Cluster path (mpo_env_cluster_kernel), for the shapes no one-CTA plan
+// holds, up to D = 128 (D > 64, or many ket blocks at 33 <= D <= 64, such
+// as d = 2 with W = 7, 8 or d = 1 with W = 9..16).
+//
+// Bound (H100 SXM, fp32 cores, Heisenberg W = 5, d = 2, D = 128, B = 1000,
+// N = 50): 4*d*W*D^3 GEMM FLOPs per sample and site, 4.19e12 in all, run as
+// 3xTF32 at 495 TFLOP/s: 25.4 ms, far above the 1.96 ms its 6.55 GB of
+// cores take to stream from HBM once.  What bars the one-CTA design there
+// is shared memory: E alone is 5*128*132*4 = 337,920 B.
+//
+// Design: a thread-block cluster of C CTAs (2 <= C <= 8, 512 threads each)
+// walks one sample's sites; CTA c owns the columns l in [c*LC, (c+1)*LC) of
+// the padded bond DP = C*LC (DP = D rounded up to 16, at least 32; LC 16,
+// 32 or 64).  Splitting by columns keeps the channel mix and the bra
+// local, and leaves two operands that cross CTAs, both read straight from
+// the peers' shared memory (distributed shared memory, addresses from
+// mapa) between cluster barriers:
+//   * the ket's A operand E_w[i, k] over all k: t[e, w][:, c-slice] =
+//     E_w A_e[:, c-slice], the sum over k taken peer by peer (each CTA
+//     starts at its own slice, so the peers are not all read at once);
+//   * the bra's A operand, the core's columns j:  out[v][:, c-slice] =
+//     sum_p A_p^T t2[v, p][:, c-slice], a 16-row tile of j read from the
+//     CTA that holds those columns, one fragment feeding a group of v's
+//     (the core is the same for every v).
+// The CTA's own panel of each is read through its own shared-memory
+// address (plain shared loads), the peers' through the cluster's.
+// So each CTA stages only its own column slice of the core (d, DP, LC) by
+// the TMA (cp.async.bulk, one copy a row, mbarrier completion) into its one
+// core buffer, the next site's as soon as every CTA of the cluster has read
+// this one's (the cluster barrier before the rescale), so that the copy
+// overlaps the rescale; the cores are read from HBM once in all, and no
+// copy is multicast.  (A second buffer, which let the copy overlap the
+// GEMMs as on the one-CTA path, is not kept: PERF.md, section 6, has the
+// times with and without it.)  The mean
+// |.| is a cluster reduction: one partial per CTA, every CTA adding the C
+// partials over distributed shared memory in rank order, so all apply the
+// same `safe` and the result does not depend on timing.
+//
+// Shared memory per CTA: d*W blocks of (DP, LC + pad) fp32, rows padded
+// (pad 8) for the fragment patterns, and the core buffer.  The
+// environment takes no room of its own: E_x lives in block slot
+// x*d + d - 1 of the w-major slots x*d + y.  Two rules make that safe:
+//   1. the ket runs in rounds of at most one item a warp, an item being
+//      (w, 16-row tile mi, chunk of e) in w-major order with the chunk that
+//      holds e = d - 1 last; a round's products stay in registers until a
+//      cluster barrier says every CTA has read E_w's rows mi, then land in
+//      their slots w*d + e;
+//   2. the bra runs in rounds of v's (a warp a 16-row tile of j and a
+//      group of v's); out[v] lands in slot v*d + d - 1 (t2[v, d-1]'s) once
+//      the round's reads of t2 are done, unscaled, and is rescaled in place
+//      after the cluster-wide mean.
+// Host side, cluster_plan_for picks the smallest C (widest LC) whose layout
+// fits, with padded rows, else unpadded; where no C fits, the shape is out
+// of reach.  The launch checks the cluster with
+// cudaOccupancyMaxActiveClusters and returns the CUDA error of anything
+// refused; nothing falls back.  An item holds at
+// most 8 m16n8 accumulator tiles (a ket item splits its e range into
+// chunks to stay there).  The four steps, casts, mix and rescale are those
+// of the one-CTA path; 3xTF32 for fp32 cores, one bf16 pass for bf16.
+// Its times on the card, beside those of the FMA kernel it replaced, are
+// in PERF.md (section 6, kernel #3's row).
+//
+// One C function (path_for, exported as cn_mpo_env_path) picks the path
+// from the shape before the launch: the one-CTA tensor-core path wherever
+// one of its plans fits, the cluster path where only it fits, neither
+// beyond.  A failed launch of one path is never retried on the other.
 
 #include "tc_common.cuh"
 
@@ -389,157 +443,341 @@ mpo_env_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
   if (threadIdx.x == 0) log_out[b] = log_acc;
 }
 
-// ------------------------------------------------------------ exact-D path
+// ------------------------------------------------------------ cluster path
 
-constexpr int kExactThreads = 256;
-constexpr int kExactTX = 16;  // a 16 x 16 thread grid
-constexpr int kExactCT = 4;   // each thread's 4 x 4 tile of a D x D product (D <= 64)
+constexpr int kClusterMax = 8;      // CTAs a cluster may hold portably
+constexpr int kClusterBond = 128;   // widest bond of the cluster path
+constexpr int kItemTiles = 8;       // m16n8 accumulator tiles of one item
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+struct ClusterPlan {
+  int csize;  // CTAs per sample (0: no plan fits)
+  int lc;     // bond columns a CTA owns: 16, 32 or 64
+  int dp;     // padded bond, csize * lc
+  int pad;    // row padding of the blocks and the core rows: 8 or 0
+};
 
-// Shared memory of the exact-D path (bytes): E (W*D, D+1), t (d*W, D, D),
-// the core (d, D, D) in fp32 and one partial a warp
-int exact_smem(int phys, int bond, int wdim) {
-  return 4 * (wdim * bond * (bond + 1) + (phys * wdim + phys) * bond * bond + kExactThreads / 32);
+struct ClusterLayout {
+  int ld;           // row length of a block and of a core row
+  int stage_elems;  // the core slice (d*dp, ld)
+  int core, red, bar, total;  // byte offsets (blocks at 0), total bytes
+};
+
+// Cluster primitives (sm_90): this CTA's rank and its cluster's index, a
+// barrier over every thread of the cluster (release, then acquire), and the
+// generic address of the same shared-memory offset in CTA `rank`
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <typename P>
+__device__ __forceinline__ P* map_rank(P* p, int rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(out) : "l"(p), "r"(rank));
+  return reinterpret_cast<P*>(out);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kExactThreads)
-mpo_env_exact_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
-                     const __grid_constant__ Mix mix, float* __restrict__ env_out,
-                     float* __restrict__ log_out, int n_sites, int phys, int bond, int wdim,
-                     float count, float thr) {
-  constexpr int CT = kExactCT, TX = kExactTX;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int dd = bond * bond, es = bond + 1, nq = phys * wdim;
-  float* e_s = reinterpret_cast<float*>(smem);  // E (W*D, D+1)
-  float* t_s = e_s + wdim * bond * es;           // t (d*W, D, D)
-  float* a_s = t_s + nq * dd;                    // this site's core (d, D, D)
-  float* red_s = a_s + phys * dd;                // one partial a warp
+__host__ __device__ ClusterLayout cluster_layout(int phys, int wdim, ClusterPlan p) {
+  ClusterLayout L;
+  L.ld = p.lc + p.pad;
+  L.stage_elems = phys * p.dp * L.ld;
+  L.core = phys * wdim * p.dp * L.ld * 4;
+  L.red = L.core + L.stage_elems * (int)sizeof(T);
+  L.bar = L.red + 32 * 4;  // kWarps partials and the CTA's total
+  L.total = L.bar + 8;
+  return L;
+}
 
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const T* sample = cores + (size_t)blockIdx.x * n_sites * phys * dd;
-  for (int e = threadIdx.x; e < wdim * dd; e += kExactThreads)
-    e_s[(e / bond) * es + e % bond] = env0[e];
+// The padded bond, cluster size and row padding for a shape: the smallest
+// cluster whose layout fits (fewer, wider CTAs measured faster even with
+// unpadded rows: PERF.md), with padded rows, else unpadded; csize = 0 when
+// none fits
+template <typename T>
+ClusterPlan cluster_plan_for(int phys, int bond, int wdim) {
+  const ClusterPlan none = {0, 0, 0, 0};
+  if (phys < 1 || wdim < 1 || bond < 1 || bond > kClusterBond || phys * wdim > kMaxMix)
+    return none;
+  const int dp = bond <= 32 ? 32 : (bond + 15) / 16 * 16;
+  for (int lc = 64; lc >= 16; lc /= 2)
+    for (const int pad : {8, 0}) {
+      const int c = dp / lc;
+      if (dp % lc != 0 || c < 2 || c > kClusterMax) continue;
+      const ClusterPlan p = {c, lc, dp, pad};
+      if (cluster_layout<T>(phys, wdim, p).total <= kSmemLimit) return p;
+    }
+  return none;
+}
+
+// t2 = M t at every (i, l) of this CTA's columns (lc = 1 << lsh).  t[e, w]
+// sits in slot w*d + e, t2[v, p] lands in slot v*d + p; MQ >= d*W
+template <typename T, int MQ>
+__device__ __forceinline__ void cluster_mix(float* blk, const Mix& mix, int phys, int wdim,
+                                            int dp, int lsh, int ld) {
+  const int nq = phys * wdim, slot = dp * ld;
+  int qoff[MQ];  // t[q]'s slot, q = e*W + w
+#pragma unroll
+  for (int q = 0; q < MQ; ++q) qoff[q] = q < nq ? ((q % wdim) * phys + q / wdim) * slot : 0;
+  for (int p = threadIdx.x; p < dp << lsh; p += kThreads) {
+    const int off = (p >> lsh) * ld + (p & ((1 << lsh) - 1));
+    float in[MQ];
+#pragma unroll
+    for (int q = 0; q < MQ; ++q) in[q] = q < nq ? blk[qoff[q] + off] : 0.f;
+#pragma unroll
+    for (int o = 0; o < MQ; ++o) {
+      if (o >= nq) break;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < MQ; ++q) s = fmaf(mix.m[o * kMaxMix + q], in[q], s);
+      blk[o * slot + off] = as_operand<T>(s);
+    }
+  }
+}
+
+// Stage this CTA's column slice of a core (`rows` rows of dp elements, src
+// at the slice's first column, lc columns) into rows of length ld, one
+// cp.async.bulk per row; completion on `bar`, armed by thread 0 (see
+// stage_core)
+template <typename T>
+__device__ __forceinline__ void stage_slice(T* dst, const T* src, int rows, int dp, int lc, int ld,
+                                            uint64_t* bar) {
+  const uint32_t row_bytes = lc * sizeof(T);
+  if (threadIdx.x == 0) mbar_expect_tx(bar, row_bytes * rows);
+  for (int r = threadIdx.x; r < rows; r += kThreads)
+    bulk_copy(dst + r * ld, src + (size_t)r * dp, row_bytes, bar);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mpo_env_cluster_kernel(const T* __restrict__ cores, const float* __restrict__ env0,
+                       const __grid_constant__ Mix mix, float* __restrict__ env_out,
+                       float* __restrict__ log_out, int n_sites, int phys, int bond, int wdim,
+                       ClusterPlan plan, float count, float thr) {
+  using Op = Tc<T>;
+  constexpr int KS = Op::kK;
+  const int rank = cluster_rank(), csize = plan.csize;
+  const int b = cluster_id();
+  const int dp = plan.dp, lc = plan.lc;
+  const ClusterLayout L = cluster_layout<T>(phys, wdim, plan);
+  const int ld = L.ld;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* blk = reinterpret_cast<float*>(smem);  // d*W slots of (dp, ld)
+  T* cs = reinterpret_cast<T*>(smem + L.core);  // core slice (d*dp, ld)
+  float* red_s = reinterpret_cast<float*>(smem + L.red);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+
+  const int warp = threadIdx.x >> 5, lane = lane_id();
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = dp / 16;                            // 16-row tiles of the bond
+  const int nn = lc / 8;                             // n8 tiles of this CTA's columns
+  const int ec = nn >= kItemTiles ? 1 : kItemTiles / nn;  // e's a ket item holds
+  const int nec = (phys + ec - 1) / ec;
+  const int n_ket = wdim * mt * nec;                 // ket items, w-major
+  const int vg = max(1, kItemTiles / nn);            // v's a bra item holds
+  const int lsh = __ffs(lc) - 1;                     // lc = 1 << lsh
+  const int eslot = phys - 1;                        // E_x in slot x*d + eslot
+
+  zero_shared(reinterpret_cast<float*>(smem), L.total / 4);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  for (int x = 0; x < wdim; ++x)
+    for (int p = threadIdx.x; p < dp << lsh; p += kThreads) {
+      const int i = p >> lsh, l = p & (lc - 1);
+      blk[((x * phys + eslot) * dp + i) * ld + l] = env0[(x * dp + i) * dp + rank * lc + l];
+    }
+  __syncthreads();
+
+  auto fetch = [&](int n) {
+    if (n < n_sites)
+      stage_slice(cs, cores + ((size_t)b * n_sites + n) * phys * dp * dp + rank * lc,
+                  phys * dp, dp, lc, ld, bar);
+  };
+  fetch(0);
   float log_acc = 0.f;
 
   for (int n = 0; n < n_sites; ++n) {
-    const T* core = sample + (size_t)n * phys * dd;
-    for (int e = threadIdx.x; e < phys * dd; e += kExactThreads) a_s[e] = load_f32(core + e);
-    __syncthreads();  // the core landed; E holds the rescaled environment
+    mbar_wait(bar, n & 1);
+    cluster_sync();  // S1: every CTA's core slice landed, every E final
 
-    // 1. ket GEMMs  t[e*W + w] = E_w A_e, E cast to the core type
-    for (int w = 0; w < wdim; ++w) {
-      const float* ew = e_s + w * bond * es;
-      for (int e = 0; e < phys; ++e) {
-        const float* ae = a_s + e * dd;
-        float acc[CT][CT] = {};
-        for (int k = 0; k < bond; ++k) {
-          float ev[CT], av[CT];
+    // 1. ket GEMMs in rounds of one item a warp
+    for (int base = 0; base < n_ket; base += kWarps) {
+      const int item = base + warp;
+      const bool active = item < n_ket;
+      const int w = item / (mt * nec), rem = item - w * mt * nec;
+      const int mi = rem / nec, e0 = (rem - mi * nec) * ec;
+      const int ntile = active ? min(ec, phys - e0) * nn : 0;
+      float acc[kItemTiles][4];
+      int boff[kItemTiles];  // B tile j: core block e0 + j / nn, columns (j % nn) * 8
 #pragma unroll
-          for (int a = 0; a < CT; ++a) {
-            const int i = ty + TX * a;
-            ev[a] = i < bond ? as_operand<T>(ew[i * es + k]) : 0.f;
+      for (int j = 0; j < kItemTiles; ++j) {
+        boff[j] = (e0 + j / nn) * dp * ld + (j % nn) * 8;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+      }
+      // the k in peer r's columns: E_w's rows mi there (ep) times the core
+      // slice's rows r*lc ..; a separate copy for the CTA's own columns
+      // keeps its reads on plain shared loads
+      auto panel = [&](const float* ep, int r) {
+#pragma unroll 2
+        for (int kk = 0; kk < lc; kk += KS) {
+          typename Op::AFrag af;  // bf16: packing E rounds it, the Pallas cast
+          Op::load_a(af, [&](int rr, int c) { return ep[rr * ld + kk + c]; }, g, t);
+          const int k0 = (r * lc + kk) * ld;
+#pragma unroll
+          for (int j = 0; j < kItemTiles; ++j) {
+            if (j < ntile) {
+              typename Op::BFrag bf;
+              Op::load_b(bf, [&](int rr, int c) { return cs[boff[j] + k0 + rr * ld + c]; }, g,
+                         t);
+              Op::mma(acc[j], af, bf);
+            }
           }
-#pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            const int l = tx + TX * c;
-            av[c] = l < bond ? ae[k * bond + l] : 0.f;
-          }
-#pragma unroll
-          for (int a = 0; a < CT; ++a)
-#pragma unroll
-            for (int c = 0; c < CT; ++c) acc[a][c] = fmaf(ev[a], av[c], acc[a][c]);
         }
-        float* tq = t_s + (e * wdim + w) * dd;
+      };
+      if (active) {
+        const float* own = blk + ((w * phys + eslot) * dp + mi * 16) * ld;  // E_w, rows mi
+        panel(own, rank);
+        for (int s = 1; s < csize; ++s) {
+          const int r = (rank + s) % csize;
+          panel(map_rank(own, r), r);
+        }
+      }
+      cluster_sync();  // every CTA has read the E rows this round writes over
 #pragma unroll
-        for (int a = 0; a < CT; ++a)
+      for (int j = 0; j < kItemTiles; ++j) {
+        if (j < ntile) {
+          const int slot = w * phys + e0 + j / nn, col = (j % nn) * 8 + 2 * t;
 #pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            const int i = ty + TX * a, l = tx + TX * c;
-            if (i < bond && l < bond) tq[i * bond + l] = acc[a][c];
-          }
+          for (int c = 0; c < 4; ++c)
+            blk[(slot * dp + mi * 16 + g + 8 * (c >> 1)) * ld + col + (c & 1)] = acc[j][c];
+        }
       }
     }
     __syncthreads();
 
-    // 2. channel mix in place, t2[v*d + p] = sum_q M[v*d + p][q] t[q] cast to
-    // the core type (entries past d*W are zero and add exact zeros)
-    for (int p = threadIdx.x; p < dd; p += kExactThreads) {
-      float in[kMaxMix];
-#pragma unroll
-      for (int q = 0; q < kMaxMix; ++q) in[q] = q < nq ? t_s[q * dd + p] : 0.f;
-      for (int o = 0; o < nq; ++o) {
-        float s = 0.f;
-#pragma unroll
-        for (int q = 0; q < kMaxMix; ++q) s = fmaf(mix.m[o * kMaxMix + q], in[q], s);
-        t_s[o * dd + p] = as_operand<T>(s);
-      }
-    }
+    // 2. channel mix, in place
+    if (phys * wdim <= 8)
+      cluster_mix<T, 8>(blk, mix, phys, wdim, dp, lsh, ld);
+    else
+      cluster_mix<T, kMaxMix>(blk, mix, phys, wdim, dp, lsh, ld);
     __syncthreads();
 
-    // 3. bra GEMMs  out[v] = A^T t2[v], unscaled over E (last read in step 1)
+    // 3. bra GEMMs: warp -> (16-row tile mj of j, group of at most vg v's
+    // from vb), one A fragment (the core's columns, the same for every v)
+    // feeding the group's tiles; a round's v's split evenly over its
+    // kWarps / mt groups
     float part = 0.f;
-    for (int v = 0; v < wdim; ++v) {
-      const float* t2 = t_s + v * phys * dd;  // rows (p, i)
-      float acc[CT][CT] = {};
-      for (int q = 0; q < phys * bond; ++q) {
-        float av[CT], tv[CT];
+    const int groups = kWarps / mt;
+    for (int v0 = 0, vr; v0 < wdim; v0 += vr) {
+      vr = min(groups * vg, wdim - v0);  // v's of this round
+      const int per = (vr + groups - 1) / groups;
+      const int mj = warp % mt, vb = v0 + (warp / mt) * per;
+      const int ntile = warp < groups * mt && vb < v0 + vr ? min(per, v0 + vr - vb) * nn : 0;
+      float keep[kItemTiles][4];
+      int toff[kItemTiles];  // B tile j: t2[vb + j / nn, p], columns (j % nn) * 8
 #pragma unroll
-        for (int a = 0; a < CT; ++a) {
-          const int j = ty + TX * a;
-          av[a] = j < bond ? a_s[q * bond + j] : 0.f;
-        }
+      for (int j = 0; j < kItemTiles; ++j) {
+        toff[j] = (vb + j / nn) * phys * dp * ld + (j % nn) * 8;
 #pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int l = tx + TX * c;
-          tv[c] = l < bond ? t2[q * bond + l] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < CT; ++a)
-#pragma unroll
-          for (int c = 0; c < CT; ++c) acc[a][c] = fmaf(av[a], tv[c], acc[a][c]);
+        for (int c = 0; c < 4; ++c) keep[j][c] = 0.f;
       }
+      // A^T from ap, the core's columns mj*16 .. in the CTA rj that holds
+      // them; a separate copy for the CTA's own columns (plain shared loads)
+      auto bra = [&](const T* ap) {
+        for (int p = 0; p < phys; ++p) {
+          const float* tb = blk + p * dp * ld;  // t2[., p], rows i
+          const T* A = ap + p * dp * ld;        // A^T: row j, column i
+#pragma unroll 2
+          for (int ks = 0; ks < dp; ks += KS) {
+            typename Op::AFrag af;
+            Op::load_a(af, [&](int row, int c) { return A[(ks + c) * ld + row]; }, g, t);
 #pragma unroll
-      for (int a = 0; a < CT; ++a)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int j = ty + TX * a, l = tx + TX * c;
-          if (j < bond && l < bond) {
-            e_s[(v * bond + j) * es + l] = acc[a][c];
-            part += fabsf(acc[a][c]);
+            for (int j = 0; j < kItemTiles; ++j) {
+              if (j < ntile) {
+                typename Op::BFrag bf;
+                Op::load_b(bf, [&](int row, int c) { return tb[toff[j] + (ks + row) * ld + c]; },
+                           g, t);
+                Op::mma(keep[j], af, bf);
+              }
+            }
           }
         }
+      };
+      if (ntile > 0) {
+        const int rj = (mj * 16) >> lsh;
+        const T* own = cs + (mj * 16 - rj * lc);
+        if (rj == rank)
+          bra(own);
+        else
+          bra(map_rank(own, rj));
+      }
+      __syncthreads();  // every read of this round's t2 done
+#pragma unroll
+      for (int j = 0; j < kItemTiles; ++j) {
+        if (j < ntile) {
+          float* ob = blk + ((vb + j / nn) * phys + eslot) * dp * ld;
+          const int col = (j % nn) * 8 + 2 * t;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            ob[(mj * 16 + g + 8 * (c >> 1)) * ld + col + (c & 1)] = keep[j][c];
+            part += fabsf(keep[j][c]);
+          }
+        }
+      }
     }
 
-    // 4. rescale the whole environment by its mean |.|; each thread scales
-    // the entries it wrote
+    // 4. rescale the whole environment by its mean |.| over the cluster
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (threadIdx.x % 32 == 0) red_s[threadIdx.x / 32] = part;
-    __syncthreads();  // partials written; every read of t and this core done
+    if (lane == 0) red_s[warp] = part;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int i = 0; i < kWarps; ++i) s += red_s[i];
+      red_s[kWarps] = s;
+    }
+    cluster_sync();  // S2: every partial written; every read of this site's cores and E done
+    fetch(n + 1);
     float total = 0.f;
-#pragma unroll
-    for (int w = 0; w < kExactThreads / 32; ++w) total += red_s[w];
+    for (int r = 0; r < csize; ++r)
+      total += r == rank ? red_s[kWarps] : *map_rank(red_s + kWarps, r);
     const float norm = __fdiv_rn(total, count);
     const float safe = norm > thr ? norm : 1.f;
     const float inv = __fdiv_rn(1.f, safe);
     log_acc += logf(safe);
-    for (int v = 0; v < wdim; ++v)
-#pragma unroll
-      for (int a = 0; a < CT; ++a)
-#pragma unroll
-        for (int c = 0; c < CT; ++c) {
-          const int j = ty + TX * a, l = tx + TX * c;
-          if (j < bond && l < bond) e_s[(v * bond + j) * es + l] *= inv;
-        }
+    const bool last = n == n_sites - 1;
+    float* out = env_out + (size_t)b * wdim * bond * bond;
+    for (int x = 0; x < wdim; ++x)
+      for (int p = threadIdx.x; p < dp << lsh; p += kThreads) {
+        const int i = p >> lsh, l = p & (lc - 1);
+        float* slot = blk + ((x * phys + eslot) * dp + i) * ld + l;
+        const float val = *slot * inv;
+        if (!last)
+          *slot = val;
+        else if (i < bond && rank * lc + l < bond)
+          out[(x * bond + i) * bond + rank * lc + l] = val;
+      }
+    __syncthreads();
   }
-  __syncthreads();
-  float* out = env_out + (size_t)blockIdx.x * wdim * dd;
-  for (int e = threadIdx.x; e < wdim * dd; e += kExactThreads)
-    out[e] = e_s[(e / bond) * es + e % bond];
-  if (threadIdx.x == 0) log_out[blockIdx.x] = log_acc;
+  if (threadIdx.x == 0 && rank == 0) log_out[b] = log_acc;
+  cluster_sync();  // no CTA leaves while a peer may still read its shared memory
 }
 
 // ------------------------------------------------------------ launches
@@ -582,28 +820,49 @@ int dispatch_tc(const void* cores, const float* env0, const Mix& mix, float* env
 }
 
 template <typename T>
-int launch_exact(const void* cores, const float* env0, const Mix& mix, float* env_out,
-                 float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float count,
-                 float thr, cudaStream_t stream) {
-  const int smem = exact_smem(phys, bond, wdim);
-  auto kernel = mpo_env_exact_kernel<T>;
+int launch_cluster(const void* cores, const float* env0, const Mix& mix, float* env_out,
+                   float* log_out, int batch, int n_sites, int phys, int bond, int wdim,
+                   float count, float thr, cudaStream_t stream) {
+  const ClusterPlan plan = cluster_plan_for<T>(phys, bond, wdim);
+  if (plan.csize == 0 || plan.dp != bond) return (int)cudaErrorInvalidValue;
+  const int smem = cluster_layout<T>(phys, wdim, plan).total;
+  auto kernel = mpo_env_cluster_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<batch, kExactThreads, smem, stream>>>(static_cast<const T*>(cores), env0, mix, env_out,
-                                                 log_out, n_sites, phys, bond, wdim, count, thr);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * plan.csize);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster the card cannot place is refused here, not at the launch
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(cores), env0, mix, env_out,
+                           log_out, n_sites, phys, bond, wdim, plan, count, thr);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// The path for a shape, decided before any launch: the tensor-core path
-// wherever one of its plans fits, else the exact-D path where it fits
-constexpr int kOutOfReach = 0, kTensorCore = 1, kExactD = 2;
+// The path for a shape, decided before any launch: the one-CTA tensor-core
+// path wherever one of its plans fits, else the cluster path where it fits
+constexpr int kOutOfReach = 0, kTensorCore = 1, kCluster = 2;
 
 template <typename T>
 int path_for(int phys, int bond, int wdim) {
-  if (phys < 1 || wdim < 1 || bond < 1 || bond > 64 || phys * wdim > kMaxMix) return kOutOfReach;
+  if (phys < 1 || wdim < 1 || bond < 1 || phys * wdim > kMaxMix) return kOutOfReach;
   Config c;
-  if (config_for(bond, wdim, c) && plan_for<T>(phys, c.dp, wdim).nbuf > 0) return kTensorCore;
-  return exact_smem(phys, bond, wdim) <= kSmemLimit ? kExactD : kOutOfReach;
+  if (bond <= 64 && config_for(bond, wdim, c) && plan_for<T>(phys, c.dp, wdim).nbuf > 0)
+    return kTensorCore;
+  return cluster_plan_for<T>(phys, bond, wdim).csize > 0 ? kCluster : kOutOfReach;
 }
 
 template <typename T>
@@ -614,9 +873,9 @@ int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_ou
     case kTensorCore:
       return dispatch_tc<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
                             count, thr, stream);
-    case kExactD:
-      return launch_exact<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
-                             count, thr, stream);
+    case kCluster:
+      return launch_cluster<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond,
+                               wdim, count, thr, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -625,13 +884,13 @@ int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_ou
 
 extern "C" {
 
-// cores (B, N, d, D, D) fp32 or bf16, on the tensor-core path with
-// D * sizeof(T) a multiple of 16 (zero-padded by the wrapper), on the
-// exact-D path as they are; the path is cn_mpo_env_path's for this D.
-// env0 (W*D, D) fp32 on the device; mix
-// (16, 16) fp32 in host memory, M[v*d+p][e*W+w] zero-padded; `count` the
-// unpadded W*D*D (the divisor of the mean).  Writes env_out (B, W*D, D) fp32
-// and log_out (B,) fp32.
+// cores (B, N, d, D, D) fp32 or bf16, zero-padded by the wrapper to the
+// layout of the path cn_mpo_env_path names (padding keeps the path): on the
+// tensor-core path D * sizeof(T) a multiple of 16, on the cluster path D
+// the cluster's padded bond (cn_mpo_env_bond); env0 (W*D, D) fp32 on the
+// device, padded alike; mix (16, 16) fp32 in host memory, M[v*d+p][e*W+w]
+// zero-padded; `count` the unpadded W*D*D (the divisor of the mean).
+// Writes env_out (B, W*D, D) fp32 and log_out (B,) fp32.
 int cn_mpo_env(const void* cores, int cores_bf16, const float* env0, const float* mix_host,
                float* env_out, float* log_out, int batch, int n_sites, int phys, int bond,
                int wdim, float count, float thr, void* stream) {
@@ -645,19 +904,41 @@ int cn_mpo_env(const void* cores, int cores_bf16, const float* env0, const float
                          count, thr, s);
 }
 
-// The path cn_mpo_env takes for these operands: 1 the tensor-core kernel,
-// 2 the exact-D kernel, 0 neither (D > 64, d*W > 16, or no layout of either
-// that fits the per-block limit).
+// The path cn_mpo_env takes for these operands: 1 the one-CTA tensor-core
+// kernel, 2 the cluster kernel, 0 neither (D > 128, d*W > 16, or no layout
+// of either that fits the per-block limit).
 int cn_mpo_env_path(int cores_bf16, int phys, int bond, int wdim) {
   return cores_bf16 ? path_for<__nv_bfloat16>(phys, bond, wdim) : path_for<float>(phys, bond, wdim);
+}
+
+// The padded bond the cluster path lays the cores and env0 out at (a
+// multiple of 16, at least 32), or -1 where the shape takes another path.
+int cn_mpo_env_bond(int cores_bf16, int phys, int bond, int wdim) {
+  if (cn_mpo_env_path(cores_bf16, phys, bond, wdim) != kCluster) return -1;
+  return cores_bf16 ? cluster_plan_for<__nv_bfloat16>(phys, bond, wdim).dp
+                    : cluster_plan_for<float>(phys, bond, wdim).dp;
+}
+
+// CTAs that work on one sample on that path: 1 on the tensor-core path,
+// the cluster's size on the cluster path, 0 outside the kernel's reach.
+int cn_mpo_env_cluster(int cores_bf16, int phys, int bond, int wdim) {
+  const int path = cn_mpo_env_path(cores_bf16, phys, bond, wdim);
+  if (path == kTensorCore) return 1;
+  if (path == kOutOfReach) return 0;
+  return cores_bf16 ? cluster_plan_for<__nv_bfloat16>(phys, bond, wdim).csize
+                    : cluster_plan_for<float>(phys, bond, wdim).csize;
 }
 
 // Dynamic shared memory of one CTA on that path (bytes), or -1 outside
 // the kernel's reach.
 int cn_mpo_env_smem(int cores_bf16, int phys, int bond, int wdim) {
   const int path = cn_mpo_env_path(cores_bf16, phys, bond, wdim);
-  if (path == kExactD) return exact_smem(phys, bond, wdim);
   if (path == kOutOfReach) return -1;
+  if (path == kCluster)
+    return cores_bf16 ? cluster_layout<__nv_bfloat16>(
+                            phys, wdim, cluster_plan_for<__nv_bfloat16>(phys, bond, wdim)).total
+                      : cluster_layout<float>(phys, wdim, cluster_plan_for<float>(phys, bond, wdim))
+                            .total;
   Config c;
   config_for(bond, wdim, c);
   return cores_bf16 ? make_layout<__nv_bfloat16>(phys, c.dp, wdim,

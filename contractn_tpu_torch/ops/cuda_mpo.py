@@ -6,21 +6,29 @@ Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_mpo.py``
 -> ``_kernel``).  The CUDA source is ``csrc/mpo_env.cu`` (entry
 ``cn_mpo_env``); its header states the bound on an H100 (``4*d*W*D^3`` GEMM
 FLOPs per sample and site, run as 3xTF32 on the tensor cores for fp32 cores
-and as one bf16 pass for bf16) and the design: one CTA per sample walks every
-site with the ``(W*D, D)`` fp32 environment and the ket products resident in
-shared memory, the ket and bra GEMMs on ``mma.sync``, the channel mix in
-place between them, and the next site's core fetched by the TMA
-(``cp.async.bulk``, one copy a row) into a second buffer while this one
-computes.  A bond whose rows are not a whole number of 16-byte copies is
-zero-padded here first (:func:`aligned_bond`).  That tensor-core path takes
-D <= 64, d*W <= 16 and W <= 8 at D > 32, within its shared memory.  Where
-its padded tiles do not fit (33 <= D <= 64 with many ket blocks, such as
-d = 2 with W = 6..8 or d = 1 with W = 9..16), the same source's exact-D
-kernel runs instead: fp32 FMA on operands held at exactly D, the design
-that first ported this kernel.  The library decides which, from the shape
-and before the launch (``cn_mpo_env_path``); each path counts its launches
-in ``mpo_env.launches_by_path``.  Shapes neither holds (D > 64, d*W > 16,
-or too large for shared memory) raise ``ValueError``.
+and as one bf16 pass for bf16) and the design of its two paths, both on
+``mma.sync`` with the channel mix in place between the ket and bra GEMMs
+and the cores fetched by the TMA (``cp.async.bulk``, one copy a row):
+
+* the one-CTA tensor-core path: one CTA per sample walks every site with the
+  ``(W*D, D)`` fp32 environment and the ket products resident in its shared
+  memory, the next site's core fetched into a second buffer while this one
+  computes.  It takes D <= 64, d*W <= 16 and W <= 8 at D > 32, within its
+  shared memory; a bond whose rows are not a whole number of 16-byte copies
+  is zero-padded here first (:func:`aligned_bond`);
+* the cluster path, for the shapes no one-CTA plan holds (D > 64, or many
+  ket blocks at 33 <= D <= 64, such as d = 2 with W = 7, 8): a thread-block
+  cluster of 2 to 8 CTAs per sample, each owning a slice of the bond's
+  columns, reading the environment and the core columns it lacks from its
+  peers' shared memory.  It takes D <= 128 and d*W <= 16 where a cluster's
+  layout fits; the bond is zero-padded here to the cluster's (a multiple of
+  16, at least 32: ``cn_mpo_env_bond``).
+
+The library decides which, from the shape and before the launch
+(``cn_mpo_env_path``); each path counts its launches in
+``mpo_env.launches_by_path``.  Shapes neither holds (D > 128, d*W > 16, or
+too large for shared memory) raise ``ValueError``; a launch the card
+refuses raises ``RuntimeError``, and nothing falls back.
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 per site, ``d`` ket GEMMs ``(W D, D) x (D, D)`` with the environment cast to
@@ -56,11 +64,13 @@ _SIGNATURES = {
     ],
     "cn_mpo_env_path": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "cn_mpo_env_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    "cn_mpo_env_bond": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    "cn_mpo_env_cluster": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 }
 # cn_mpo_env_path's answer: the kernel that takes a shape, or None
-PATHS = (None, "tensor_core", "exact")
+PATHS = (None, "tensor_core", "cluster")
 
-MAX_BOND = 64  # widest bond the environment kernel takes
+MAX_BOND = 128  # widest bond the environment kernel takes
 MAX_MIX = 16   # largest d * W the kernel's channel mix holds in registers
 
 
@@ -194,11 +204,14 @@ def mpo_env(cores, env0, entries, wdim):
     if path is None:
         raise ValueError(
             f"d={phys}, D={bond}, W={wdim} is outside the MPO kernel's reach: "
-            f"it takes D <= {MAX_BOND} and d*W <= {MAX_MIX}, within "
-            f"{_build.SMEM_LIMIT} bytes of shared memory per block (on the "
-            "exact-D path 4*(W*D*(D+1) + (d*W + d)*D*D + 8) bytes)"
+            f"it takes D <= {MAX_BOND} and d*W <= {MAX_MIX}, where one CTA's "
+            f"or a cluster's layout fits {_build.SMEM_LIMIT} bytes of shared "
+            "memory per block (csrc/mpo_env.cu)"
         )
-    layout = aligned_bond(bond, cores.dtype) if path == "tensor_core" else bond
+    if path == "tensor_core":
+        layout = aligned_bond(bond, cores.dtype)
+    else:
+        layout = lib.cn_mpo_env_bond(bf16, phys, bond, wdim)
     pad = layout - bond
     cores_k = aligned16(pad_bond(cores, pad, 2))
     env0_k = pad_bond(env0.reshape(wdim, bond, bond), pad, 2).contiguous()

@@ -44,15 +44,18 @@ def test_chain_kernel_pads_an_unaligned_bond_on_gpu(cuda_device, dtype):
 
 # TFIM at three bonds, then the edges of the tensor-core path's reach:
 # Heisenberg (W 5) at D <= 32 and D = 48, W 1, 2 and 4 at D = 64, W 8; then
-# two shapes only the exact-D path takes
+# the shapes only the cluster path takes, up to D = 128
 MPO_SHAPES = [{"n_sites": 8, "bond": bond, "batch": 12} for bond in (32, 48, 20)]
-MPO_SHAPES += chip_smoke.REACH_MPO + chip_smoke.EXACT_MPO
+MPO_SHAPES += chip_smoke.REACH_MPO + chip_smoke.EXACT_MPO + chip_smoke.CLUSTER_MPO
+# each shape in the dtypes it is held in (both, unless it names them)
+MPO_CASES = [(shape, dtype) for shape in MPO_SHAPES
+             for dtype in shape.get("dtypes", (torch.float32, torch.bfloat16))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", MPO_SHAPES,
-                         ids=lambda s: f"{s.get('mpo', 'tfim')}-D{s['bond']}")
+@pytest.mark.parametrize(
+    "shape,dtype", MPO_CASES,
+    ids=[f"{s.get('mpo', 'tfim')}-D{s['bond']}-{str(dt)[6:]}" for s, dt in MPO_CASES])
 def test_mpo_kernel_matches_plain_on_gpu(cuda_device, dtype, shape):
     tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
     chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol,
@@ -71,14 +74,25 @@ def test_chain_kernel_reach_on_gpu(cuda_device, dtype, phys, bond):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("phys,bond,wdim", [(1, 65, 3), (1, 40, 17), (2, 64, 8)])
+@pytest.mark.parametrize("phys,bond,wdim", [(1, 40, 17), (2, 129, 5), (1, 129, 1)])
 def test_mpo_kernel_refuses_shapes_out_of_reach_on_gpu(cuda_device, phys, bond, wdim):
-    # D > 64, d*W > 16, and d = 2, W = 8 at D = 64, which fits neither
-    # path's shared memory
+    # d*W > 16, and D > 128 (the cluster path's widest bond)
     cores = torch.zeros((2, 3, phys, bond, bond), device=cuda_device)
     env0 = torch.zeros((wdim * bond, bond), device=cuda_device)
     with pytest.raises(ValueError, match="outside the MPO kernel's reach"):
         cuda_mpo.mpo_env(cores, env0, (), wdim)
+
+
+@pytest.mark.cuda
+def test_mpo_kernel_reach_on_gpu(cuda_device):
+    # every d*W <= 16 up to D 128 has a path, but fp32 d 15-16 with W 1 at
+    # D 113-128, where no cluster's layout fits a CTA's shared memory
+    lib = cuda_mpo.library()
+    out = {(bf16, d, w, bond)
+           for bf16 in (0, 1) for d in range(1, 17) for w in range(1, 16 // d + 1)
+           for bond in range(1, 129) if lib.cn_mpo_env_path(bf16, d, bond, w) == 0}
+    assert out == {(0, d, 1, bond) for d in (15, 16) for bond in range(113, 129)}
+    assert lib.cn_mpo_env_path(0, 2, 129, 5) == lib.cn_mpo_env_path(1, 1, 40, 17) == 0
 
 
 @pytest.mark.cuda

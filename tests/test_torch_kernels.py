@@ -14,12 +14,13 @@ import pytest
 import torch
 
 from contractn_tpu.models import MPO as JMPO
+from contractn_tpu.models import heisenberg_mpo as j_heisenberg_mpo
 from contractn_tpu.models import tfim_mpo as j_tfim_mpo
 from contractn_tpu.ops.pallas_epilogue import mps_evaluate_epilogue as j_epilogue
 from contractn_tpu.ops.pallas_mpo import mpo_expectation_pallas
 from contractn_tpu.ops.pallas_mps import pallas_mps_evaluate
 from contractn_tpu_torch.convert import mpo_from_numpy
-from contractn_tpu_torch.models import tfim_mpo
+from contractn_tpu_torch.models import heisenberg_mpo, tfim_mpo
 from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
 
 torch.set_num_threads(1)
@@ -186,6 +187,33 @@ def test_mpo_plain_matches_pallas_uniform_w6():
                                  btile=2, interpret=True)
     mpo = mpo_from_numpy(w, ends[0], ends[1], device="cpu")
     assert len(cuda_mpo.mpo_entries(mpo)) == 2 * 2 * wdim * wdim
+    before = cuda_mpo.mpo_env.launches
+    got = cuda_mpo.mpo_expectation_cuda(mpo, _t(cores), _t(ones), _t(ones))
+    assert cuda_mpo.mpo_env.launches == before
+    _assert_split_close(got, ref, RTOL, _mpo_close_condition(mpo, _t(cores), _t(ones)))
+
+
+@pytest.mark.parametrize("kind,bond", [("heisenberg", 96), ("heisenberg", 128), ((2, 8), 64)],
+                         ids=["heisenberg-D96", "heisenberg-D128", "d2-W8-D64"])
+def test_mpo_plain_matches_pallas_at_the_cluster_reach(kind, bond):
+    # shapes only the CUDA kernel's cluster path takes (D > 64, and d = 2
+    # with W = 8 at D = 64): the plain version the card holds it against
+    # agrees with the Pallas kernel there too
+    n, batch = 3, 2
+    cores, ones = _mpo_arrays(n, bond, batch, seed=21)
+    if kind == "heisenberg":
+        jmpo = j_heisenberg_mpo(n, dtype=jnp.float32)
+        mpo = heisenberg_mpo(n, dtype=torch.float32, device="cpu")
+    else:
+        phys, wdim = kind
+        rng = np.random.default_rng(22)
+        core = rng.standard_normal((phys, phys, wdim, wdim)) / np.sqrt(phys * wdim)
+        w = np.broadcast_to(core.astype(np.float32), (n, phys, phys, wdim, wdim)).copy()
+        ends = (0.5 + rng.random((2, wdim))).astype(np.float32)
+        jmpo = JMPO(jnp.asarray(w), jnp.asarray(ends[0]), jnp.asarray(ends[1]))
+        mpo = mpo_from_numpy(w, ends[0], ends[1], device="cpu")
+    ref = mpo_expectation_pallas(jmpo, jnp.asarray(cores), jnp.asarray(ones), jnp.asarray(ones),
+                                 btile=2, interpret=True)
     before = cuda_mpo.mpo_env.launches
     got = cuda_mpo.mpo_expectation_cuda(mpo, _t(cores), _t(ones), _t(ones))
     assert cuda_mpo.mpo_env.launches == before

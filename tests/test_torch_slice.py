@@ -85,3 +85,11 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
     # on the CPU the wrappers run their plain versions: nothing is launched
     for counts, _ in runs.values():
         assert set(counts.values()) == {0}
+
+
+def test_chip_smoke_cluster_main_path_rehearsal_on_cpu():
+    shape = {"n_sites": 4, "bond": 8, "batch": 4, "mpo": "heisenberg", "path": "cluster"}
+    runs = chip_smoke.cluster_main_path(torch.device("cpu"), shape=shape, check=2)
+    assert set(runs) == {"mpo_expectation_cluster"}
+    counts, _ = runs["mpo_expectation_cluster"]
+    assert "mpo_env.cluster" in counts and set(counts.values()) == {0}
