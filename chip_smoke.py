@@ -19,21 +19,28 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    one core buffer where two do not fit, and the cluster path where no
    one-CTA plan fits (d 2, W 7, D 50; d 1, W 9, D 55; Heisenberg at D 65,
    96 and 128; spin-1 Heisenberg at D 128; d 2, W 8, D 64; d 1, W 16,
-   D 100), each asserting which of the MPO kernel's paths launched;
+   D 100), and the streamed path beyond both (``STREAMED_MPO``: d*W 17,
+   18, 24 and 42, the spin-1 AKLT chain, Heisenberg at D 129 and 256, fp32
+   d 15-16 with W 1 at D 113-128), each asserting which of the MPO
+   kernel's paths launched;
 4. main path through the user entry points: the three README examples
    through ``examples/torch/readme_examples.py``, the flagship batched ``MPS.evaluate`` (1000 sites x d 2
    x bond 64 x batch 4096, float32), the carry-returning evaluation at the
    same shape, the batched TFIM MPO expectation (50 sites x bond 64 x
-   1000 parameter sets) and the Heisenberg one at bond 128 (50 sites x
-   1000 samples, #3's cluster path: ``cluster_main_path``); each kernel's
+   1000 parameter sets), the Heisenberg one at bond 128 (50 sites x
+   1000 samples, #3's cluster path: ``cluster_main_path``) and the spin-1
+   AKLT one at bond 64 (50 sites x 1000 samples, #3's streamed path:
+   ``streamed_main_path``); each kernel's
    launch count is zeroed just before its path and read just after, and a
    small sample of each is held against a float64 reference;
 5. times: each kernel and its plain version with CUDA events (median of 7
    after a warm-up), beside the least time the card could take for
    fp32-accurate work (GEMMs as 3xTF32 on the tensor cores): #2 under both
-   carries, and #3's cluster path at the shape the exact-D kernel last
+   carries, #3's cluster path at the shape the exact-D kernel last
    timed (d 2, W 7, D 50) and at full width (Heisenberg, D 128, 50 sites,
-   1000 samples);
+   1000 samples), and its streamed path at ``STREAMED_TIMED`` (AKLT D 64,
+   50 x 1000; Heisenberg D 256, 50 x 256) and, as a yardstick, at the
+   cluster path's full width;
 6. training paths at the JAX package's published widths: 3 log-MSE SGD
    steps (``make_train_step``) at 512 sites x d 2 x bond 64 x batch 1024 in
    bfloat16 and float32, the float32 step-0 gradient against float64, the
@@ -235,6 +242,38 @@ CLUSTER_MPO = (
 # and the DMRG runs' bond (6.55 GB of fp32 cores)
 CLUSTER_BENCH = {"n_sites": 50, "bond": 128, "batch": 1000, "mpo": "heisenberg",
                  "path": "cluster"}
+# Shapes neither on-chip path holds, which the streamed path takes: the
+# card's former refusals (d 1 with W 17 at D 40; Heisenberg and d 1 with W 1
+# at D 129), the smallest d*W above 16 (d 3, W 6), the spin-1 AKLT chain
+# (d 3, W 14) and the random diagonal MPO of its (d, W) at D 64, d*W 24 at
+# D 160, Heisenberg at D 256, and the fp32 shapes no cluster's layout fits
+# (d 15 and 16 with W 1 at D 113 and 128).  A bf16 comparison counts only
+# the samples whose close is conditioned within 1 / TOL_BF16: at D 129 that
+# was 2-3% of Heisenberg samples and 6-16% of d 1, W 1 ones in CPU draws of
+# these inputs, hence 256 and 128 samples.  Held in fp32 only: Heisenberg at
+# D 256 (no sample of 256 qualified in bf16, median condition 230-260), and
+# d 15-16 with W 1 (in bf16 the cluster path takes them).
+STREAMED_MPO = (
+    {"n_sites": 5, "bond": 40, "batch": 16, "mpo": (1, 17), "path": "streamed"},
+    {"n_sites": 5, "bond": 129, "batch": 256, "mpo": "heisenberg", "path": "streamed"},
+    {"n_sites": 5, "bond": 129, "batch": 128, "mpo": (1, 1), "path": "streamed"},
+    {"n_sites": 5, "bond": 32, "batch": 16, "mpo": (3, 6), "path": "streamed"},
+    {"n_sites": 5, "bond": 64, "batch": 16, "mpo": "aklt", "path": "streamed"},
+    {"n_sites": 5, "bond": 64, "batch": 16, "mpo": (3, 14), "path": "streamed"},
+    {"n_sites": 5, "bond": 160, "batch": 16, "mpo": (4, 6), "path": "streamed"},
+    {"n_sites": 5, "bond": 256, "batch": 64, "mpo": "heisenberg", "path": "streamed",
+     "dtypes": (torch.float32,)},
+    {"n_sites": 5, "bond": 113, "batch": 16, "mpo": (15, 1), "path": "streamed",
+     "dtypes": (torch.float32,)},
+    {"n_sites": 5, "bond": 128, "batch": 16, "mpo": (16, 1), "path": "streamed",
+     "dtypes": (torch.float32,)},
+)
+# #3 at full width on the streamed path: the AKLT chain at the main MPO
+# shape (2.46 GB of fp32 cores), the main path's; and Heisenberg at bond
+# 256, the batch cut to 256 (6.71 GB)
+STREAMED_BENCH = {"n_sites": 50, "bond": 64, "batch": 1000, "mpo": "aklt", "path": "streamed"}
+STREAMED_WIDE = {"n_sites": 50, "bond": 256, "batch": 256, "mpo": "heisenberg",
+                 "path": "streamed"}
 # Training paths at the JAX package's published widths: the log-MSE SGD step
 # (bench.py:224-267) and the Born machine's exact-NLL Adam step
 # (bench.py:270-300); 511 sites is the odd length whose loss runs one site a
@@ -447,8 +486,11 @@ INFINITE_TINY = {
 # float64 CPU run is affordable, the card to the port on the CPU.
 # CTMRG: the square-lattice Ising model exactly at beta_c, chi 128, 300
 # iterations, against Onsager's ln z_c = ln(2)/2 + 2G/pi (G Catalan's
-# constant); at beta 0.5 from the fixed-spin boundary (ising_boundary), chi
-# 64, the magnetization against Yang's (1 - sinh(2 beta)^-4)^(1/8).  TRG: beta
+# constant), card against CPU over the first 100 iterations (all 300 until
+# the streamed MPO path's checks joined phases 3-5: the CPU took 10.05 s of
+# them, the card 1.14 s, agreeing to 6.7e-16); at beta 0.5 from the
+# fixed-spin boundary (ising_boundary), chi 64, the magnetization against
+# Yang's (1 - sinh(2 beta)^-4)^(1/8).  TRG: beta
 # 0.4, chi 64 (every split a full SVD of a 4096 x 4096 matrix), 12 steps (a
 # 4096-site block: the free energy is converged in the steps to 2e-8 at chi
 # 16 on the CPU, and each step costs two 2 s SVDs on the card), against
@@ -466,7 +508,9 @@ INFINITE_TINY = {
 # critical TFIM at bond 64, beta 2, dbeta 0.01 (0.005 until phase 13),
 # energy and ln Z against tfim_exact_thermal (the energy is second order in
 # dbeta; ln Z from the norm accumulation carries a first-order bias: -1.27e-4
-# at dbeta 0.005, -2.49e-4 at 0.01 on the CPU, against its 1e-3); thermal_wii
+# at dbeta 0.005, -2.49e-4 at 0.01 on the CPU, against its 1e-3), card
+# against CPU to beta 0.5 (to beta 2 until the streamed MPO path's checks
+# joined phases 3-5, when the CPU took 5.73 s, the card 2.87 s); thermal_wii
 # at bond 64 against the same integrals.  IBC: ibc_thermal_correlator of the
 # XX chain at bond 64 against the exact infinite free-fermion Wick oracle
 # (xx_wick below; 2 steps, 4 until phase 13, 6 until phase 12); ibc_dynamic_correlator on a
@@ -481,16 +525,16 @@ INFINITE_TINY = {
 # FACTORIZE: cp_als (rank 16, 100 steps) and tucker_hooi (ranks 32) on 256^3
 # tensors of that rank plus noise, against the noise floor, card against CPU.
 TWO_D = {
-    "ctmrg": {"chi": 128, "iters": 300, "tol": 1e-6, "mag_beta": 0.5, "mag_chi": 64,
-              "mag_iters": 200, "mag_tol": 1e-9},
+    "ctmrg": {"chi": 128, "iters": 300, "cpu_iters": 100, "tol": 1e-6, "mag_beta": 0.5,
+              "mag_chi": 64, "mag_iters": 200, "mag_tol": 1e-9},
     "trg": {"beta": 0.4, "chi": 64, "steps": 12, "tol": 1e-7},
     "hotrg": {"chi": 32, "steps": 30, "tol": 1e-7, "ad_beta": 0.4, "ad_chi": 24,
               "ad_steps": 24, "ad_tol": 1e-4},
     "mera": {"chi": 4, "sweeps": 75, "cpu_sweeps": 3, "big_chi": 6, "big_sweeps": 10,
              "e_ref": -1.1686341287681872, "dim_ref": 1.2165372767921243, "ref_tol": 1e-8,
              "seed": 0},
-    "thermal": {"beta": 2.0, "bond": 64, "dbeta": 0.01, "e_tol": 1e-5, "lz_tol": 1e-3,
-                "wii_dbeta": 0.02, "wii_tol": 3e-4},
+    "thermal": {"beta": 2.0, "cpu_beta": 0.5, "bond": 64, "dbeta": 0.01, "e_tol": 1e-5,
+                "lz_tol": 1e-3, "wii_dbeta": 0.02, "wii_tol": 3e-4},
     "ibc": {"beta": 1.0, "bond": 64, "dbeta": 0.02, "n_sites": 8, "site": 3,
             "dt": 0.05, "steps": 2, "tol": 2e-4, "heis_iters": 40, "heis_tol": 1e-4,
             "heis_sites": 8, "heis_steps": 1, "seed": 31},
@@ -504,15 +548,15 @@ TWO_D = {
 # The same paths at a size the CPU rehearses in seconds
 # (tests/test_torch_ipeps.py); the closed forms are looser there.
 TWO_D_TINY = {
-    "ctmrg": {**TWO_D["ctmrg"], "chi": 8, "iters": 30, "tol": 2e-2, "mag_chi": 8,
-              "mag_iters": 40, "mag_tol": 1e-6},
+    "ctmrg": {**TWO_D["ctmrg"], "chi": 8, "iters": 30, "cpu_iters": 10, "tol": 2e-2,
+              "mag_chi": 8, "mag_iters": 40, "mag_tol": 1e-6},
     "trg": {**TWO_D["trg"], "chi": 6, "steps": 12, "tol": 1e-3},
     "hotrg": {**TWO_D["hotrg"], "chi": 6, "steps": 12, "tol": 2e-2, "ad_chi": 6,
               "ad_steps": 10, "ad_tol": 5e-2},
     "mera": {**TWO_D["mera"], "chi": 3, "sweeps": 4, "cpu_sweeps": 2, "big_chi": 4,
              "big_sweeps": 1},
-    "thermal": {**TWO_D["thermal"], "beta": 0.4, "bond": 4, "dbeta": 0.05, "e_tol": 1e-2,
-                "lz_tol": 1e-2, "wii_dbeta": 0.1, "wii_tol": 2e-2},
+    "thermal": {**TWO_D["thermal"], "beta": 0.4, "cpu_beta": 0.2, "bond": 4, "dbeta": 0.05,
+                "e_tol": 1e-2, "lz_tol": 1e-2, "wii_dbeta": 0.1, "wii_tol": 2e-2},
     "ibc": {**TWO_D["ibc"], "bond": 4, "dbeta": 0.1, "n_sites": 4, "site": 1, "steps": 1,
             "tol": 5e-2, "heis_iters": 4, "heis_tol": 2.0, "heis_sites": 4, "heis_steps": 1},
     "lindblad": {**TWO_D["lindblad"], "bond": 4, "max_chunks": 1, "steps_per_unit": 2},
@@ -912,7 +956,8 @@ def mpo_inputs(shape, device, dtype, seed):
     """A uniform MPO, per-sample MPS cores and a ones boundary.
 
     ``shape["mpo"]`` names the MPO: ``"tfim"`` (W 3, the default),
-    ``"heisenberg"`` (W 5), ``"heisenberg_s1"`` (spin 1, d 3, W 5), or
+    ``"heisenberg"`` (W 5), ``"heisenberg_s1"`` (spin 1, d 3, W 5),
+    ``"aklt"`` (spin 1, d 3, W 14), or
     ``(d, W)`` for a random uniform one that is
     diagonal in the physical index with nonnegative entries and boundaries,
     so that the environments stay positive semidefinite and their close is
@@ -923,7 +968,7 @@ def mpo_inputs(shape, device, dtype, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     n, bond, batch = shape["n_sites"], shape["bond"], shape["batch"]
     kind = shape.get("mpo", "tfim")
-    d = kind[0] if isinstance(kind, tuple) else 3 if kind == "heisenberg_s1" else 2
+    d = mpo_dims(shape)[0]
     scale = 1.0 / math.sqrt(d * bond)
     cores = (scale * torch.randn((batch, n, d, bond, bond), generator=gen,
                                  device=device)).to(dtype)
@@ -934,6 +979,8 @@ def mpo_inputs(shape, device, dtype, seed):
         mpo = heisenberg_mpo(n, dtype=torch.float32, device=device)
     elif kind == "heisenberg_s1":
         mpo = spin1_heisenberg_mpo(n, device)
+    elif kind == "aklt":
+        mpo = aklt_mpo(n, device)
     else:
         wdim = kind[1]
         core = torch.zeros((d, d, wdim, wdim), device=device)
@@ -964,6 +1011,33 @@ def spin1_heisenberg_mpo(n, device):
     core[:, :, 0, 3], core[:, :, 3, 4] = ops["Sz"], ops["Sz"]
     ends = torch.eye(5, device=device)
     return MPO(core.expand(n, -1, -1, -1, -1).contiguous(), ends[0], ends[4])
+
+
+def aklt_mpo(n, device, dtype=torch.float32):
+    """The spin-1 AKLT chain ``sum S.S + (S.S)^2 / 3`` as a uniform real MPO
+    (d 3, W 14).  With ``S.S = sum_a g_a O_a O'_a``, ``O = (Sz, S+, S-)``,
+    ``O' = (Sz, S-, S+)`` and ``g = (1, 1/2, 1/2)``: channel 0 starts and 13
+    ends (``I`` on both diagonals), channels 1-3 carry ``O_a`` to
+    ``g_a O'_a`` and channels 4-12 ``O_a O_b`` to ``g_a g_b O'_a O'_b / 3``.
+    The open chain's ground energy is ``-2/3`` a bond."""
+    from contractn_tpu_torch.models import MPO
+    from contractn_tpu_torch.models.autompo import spin_ops
+
+    ops = {k: torch.tensor(v, dtype=torch.float64) for k, v in spin_ops(1).items()
+           if k in ("I", "Sz", "S+", "S-")}
+    left, right = (ops["Sz"], ops["S+"], ops["S-"]), (ops["Sz"], ops["S-"], ops["S+"])
+    g = (1.0, 0.5, 0.5)
+    core = torch.zeros((3, 3, 14, 14), dtype=torch.float64)
+    core[:, :, 0, 0] = core[:, :, 13, 13] = ops["I"]
+    for a in range(3):
+        core[:, :, 0, 1 + a], core[:, :, 1 + a, 13] = left[a], g[a] * right[a]
+        for b in range(3):
+            c = 4 + 3 * a + b
+            core[:, :, 0, c] = left[a] @ left[b]
+            core[:, :, c, 13] = g[a] * g[b] / 3 * (right[a] @ right[b])
+    core = core.to(device, dtype)
+    ends = torch.eye(14, dtype=dtype, device=device)
+    return MPO(core.expand(n, -1, -1, -1, -1).contiguous(), ends[0], ends[13])
 
 
 def phase_device():
@@ -1021,7 +1095,8 @@ def ptxas_report(text):
 
 def _demangle(name):
     """A short readable name for a mangled kernel template instance."""
-    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mpo_env_cluster_kernel)", name)
+    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mpo_env_cluster_kernel|streamed_\w+?_kernel)",
+                     name)
     args = re.findall(r"L[ib](\d+)E", name)
     dtype = "bf16" if "nv_bfloat16" in name else "f32"
     return f"{base.group(1) if base else name}<{','.join([dtype, *args])}>"
@@ -1035,7 +1110,8 @@ def kernel_smem(device):
     mps = cuda_mps.tc_library()
     mpo = cuda_mpo.library()
     d, bond = FLAGSHIP["phys"], FLAGSHIP["bond"]
-    mpo_shapes = [(*mpo_dims(s), s["bond"]) for s in (MPO_BENCH, *EXACT_MPO, *CLUSTER_MPO)]
+    mpo_shapes = [(*mpo_dims(s), s["bond"])
+                  for s in (MPO_BENCH, *EXACT_MPO, *CLUSTER_MPO, *STREAMED_MPO)]
     for bf16, tag in ((0, "fp32"), (1, "bf16")):
         log(f"  #1 and #2 (one layout) {tag} d={d} D={bond}: "
             f"{mps.cn_mps_evaluate_smem(bf16, d, bond)} bytes dynamic shared memory")
@@ -1043,15 +1119,17 @@ def kernel_smem(device):
             path = cuda_mpo.PATHS[mpo.cn_mpo_env_path(bf16, p, b, w)]
             padded = (f", bond padded to {mpo.cn_mpo_env_bond(bf16, p, b, w)}"
                       if path == "cluster" else "")
+            per = "CTA(s) of the ket GEMMs" if path == "streamed" else "CTA(s)"
             log(f"  #3 cn_mpo_env {tag} d={p} D={b} W={w}: {path} path, "
-                f"{mpo.cn_mpo_env_cluster(bf16, p, b, w)} CTA(s) a sample{padded}, "
-                f"{mpo.cn_mpo_env_smem(bf16, p, b, w)} bytes dynamic shared memory a CTA")
+                f"{mpo.cn_mpo_env_cluster(bf16, p, b, w)} {per} a sample{padded}, "
+                f"{mpo.cn_mpo_env_smem(bf16, p, b, w)} bytes shared memory a CTA")
 
 
 def mpo_dims(shape):
     """``(d, W)`` of the MPO that ``shape["mpo"]`` names."""
     kind = shape.get("mpo", "tfim")
-    return {"tfim": (2, 3), "heisenberg": (2, 5), "heisenberg_s1": (3, 5)}.get(kind, kind)
+    return {"tfim": (2, 3), "heisenberg": (2, 5), "heisenberg_s1": (3, 5),
+            "aklt": (3, 14)}.get(kind, kind)
 
 
 def phase_kernels_vs_plain(device):
@@ -1068,7 +1146,7 @@ def phase_kernels_vs_plain(device):
     mpo_shapes = [(tag, shape) for tag, shape in
                   (("small", SMALL_MPO), ("ragged", RAGGED_MPO), ("main", MPO_BENCH))]
     mpo_shapes += [(f"{s['mpo']} D={s['bond']}", s)
-                   for s in REACH_MPO + EXACT_MPO + CLUSTER_MPO]
+                   for s in REACH_MPO + EXACT_MPO + CLUSTER_MPO + STREAMED_MPO]
     for tag, shape in mpo_shapes:
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             if dtype not in shape.get("dtypes", (dtype,)):
@@ -1076,9 +1154,9 @@ def phase_kernels_vs_plain(device):
             err = compare_mpo_env(shape, device, dtype, tol, f"#3 mpo_env {tag} {dtype}")
             if tag == "main" and dtype == torch.float32:
                 errors["mpo_env"] = err
-            if dtype == torch.float32:  # the timed cluster shapes' (d, W, D)
-                for key, bench in CLUSTER_TIMED.items():
-                    if (mpo_dims(shape), shape["bond"]) == (mpo_dims(bench), bench["bond"]):
+            if dtype == torch.float32:  # the timed cluster and streamed shapes' (d, W, D)
+                for key, bench in {**CLUSTER_TIMED, **STREAMED_TIMED}.items():
+                    if (shape.get("mpo"), shape["bond"]) == (bench["mpo"], bench["bond"]):
                         errors[key] = err
     return errors
 
@@ -1237,6 +1315,16 @@ def cluster_main_path(device, shape=CLUSTER_BENCH, check=16):
     before and read just after; returns ``{path: (counts, seconds)}``."""
     runs = {}
     mpo_expectation_path(_drive_into(runs, device), "mpo_expectation_cluster", device, shape, check)
+    return runs
+
+
+def streamed_main_path(device, shape=STREAMED_BENCH, check=16):
+    """#3's streamed path as a user reaches it: the batched spin-1 AKLT
+    expectation (d 3, W 14, bond 64: ``shape``), its launch counts zeroed
+    just before and read just after; returns ``{path: (counts, seconds)}``."""
+    runs = {}
+    mpo_expectation_path(_drive_into(runs, device), "mpo_expectation_streamed", device, shape,
+                         check)
     return runs
 
 
@@ -3154,13 +3242,16 @@ def ctmrg_path(device, smi, cfg):
     from contractn_tpu_torch.models.ctmrg import expectation, ising_boundary
 
     exact = onsager_log_z(BETA_C)
-    vals, secs = _on((device, torch.device("cpu")), lambda dev: free_energy_per_site(
-        ising_tensor(BETA_C, device=dev), cfg["chi"], cfg["iters"]))
-    err = abs(vals[device.type] - exact)
+    lz, secs = _timed(lambda: free_energy_per_site(
+        ising_tensor(BETA_C, device=device), cfg["chi"], cfg["iters"]), device)
+    err = abs(lz - exact)
+    vals, cpu_secs = _on((device, torch.device("cpu")), lambda dev: free_energy_per_site(
+        ising_tensor(BETA_C, device=dev), cfg["chi"], cfg["cpu_iters"]))
     log(f"  CTMRG Ising at beta_c, chi {cfg['chi']}, {cfg['iters']} iterations: "
-        f"ln z {vals[device.type]!r}, Onsager {exact!r}, |diff| {err:.3e} (tol "
-        f"{cfg['tol']}); card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); "
-        f"|card - CPU| {abs(vals[device.type] - vals['cpu']):.3e} (tol {TOL_CARD_VS_CPU})")
+        f"ln z {lz!r}, Onsager {exact!r}, |diff| {err:.3e} (tol {cfg['tol']}); card "
+        f"{secs:.2f} s ({smi}); over {cfg['cpu_iters']} iterations card "
+        f"{cpu_secs[device.type]:.2f} s, CPU {cpu_secs['cpu']:.2f} s, |card - CPU| "
+        f"{abs(vals[device.type] - vals['cpu']):.3e} (tol {TOL_CARD_VS_CPU})")
     _check("CTMRG free energy against Onsager", err, cfg["tol"])
     _check("CTMRG free energy, card against CPU",
            abs(vals[device.type] - vals["cpu"]), TOL_CARD_VS_CPU)
@@ -3283,19 +3374,24 @@ def thermal_path(device, smi, cfg):
 
     lz, e_exact = tfim_exact_thermal(cfg["beta"])
     h2 = tfim_h2()
-    vals, secs = _on((device, torch.device("cpu")), lambda dev: (lambda st: (
-        thermal_energy_density(st, h2), st["log_z"]))(thermal_itebd(
-            torch.from_numpy(h2).to(dev), cfg["beta"], cfg["bond"], dbeta=cfg["dbeta"])))
-    (e, lnz), (e_cpu, lnz_cpu) = vals[device.type], vals["cpu"]
+
+    def run(dev, beta):
+        st = thermal_itebd(torch.from_numpy(h2).to(dev), beta, cfg["bond"], dbeta=cfg["dbeta"])
+        return thermal_energy_density(st, h2), st["log_z"]
+
+    (e, lnz), secs = _timed(lambda: run(device, cfg["beta"]), device)
+    vals, cpu_secs = _on((device, torch.device("cpu")), lambda dev: run(dev, cfg["cpu_beta"]))
+    (e_c, lnz_c), (e_cpu, lnz_cpu) = vals[device.type], vals["cpu"]
+    diff = max(abs(e_c - e_cpu), abs(lnz_c - lnz_cpu))
     log(f"  thermal_itebd TFIM h 1, beta {cfg['beta']}, bond {cfg['bond']}, dbeta "
         f"{cfg['dbeta']}: energy {e!r} (exact {e_exact!r}, |diff| {abs(e - e_exact):.3e}, tol "
         f"{cfg['e_tol']}), ln Z {lnz!r} (exact {lz!r}, |diff| {abs(lnz - lz):.3e}, tol "
-        f"{cfg['lz_tol']}); card {secs[device.type]:.2f} s, CPU {secs['cpu']:.2f} s ({smi}); "
-        f"|card - CPU| {max(abs(e - e_cpu), abs(lnz - lnz_cpu)):.3e} (tol {TOL_CARD_VS_CPU})")
+        f"{cfg['lz_tol']}); card {secs:.2f} s ({smi}); to beta {cfg['cpu_beta']} card "
+        f"{cpu_secs[device.type]:.2f} s, CPU {cpu_secs['cpu']:.2f} s, |card - CPU| "
+        f"{diff:.3e} (tol {TOL_CARD_VS_CPU})")
     _check("thermal energy against the exact integral", abs(e - e_exact), cfg["e_tol"])
     _check("thermal ln Z against the exact integral", abs(lnz - lz), cfg["lz_tol"])
-    _check("thermal_itebd, card against CPU", max(abs(e - e_cpu), abs(lnz - lnz_cpu)),
-           TOL_CARD_VS_CPU)
+    _check("thermal_itebd, card against CPU", diff, TOL_CARD_VS_CPU)
     hc = tfim_mpo(2, device=device).cores[0]
     sx, sz = np.array(SX), np.array(SZ)
     core, secs = _timed(lambda: thermal_wii(hc, cfg["beta"], cfg["bond"],
@@ -4619,8 +4715,9 @@ def par_cv_path(device, smi, cfg, runs, meshes):
 
 def phase_times(device):
     """Kernel and plain times at the main-path shapes, with the bound: #2
-    under both carries, and #3's cluster path at the shapes of
-    ``CLUSTER_TIMED``."""
+    under both carries, #3's cluster path at the shapes of
+    ``CLUSTER_TIMED``, its streamed path at those of ``STREAMED_TIMED`` and,
+    through ``mpo_env_streamed``, at ``CLUSTER_BENCH``."""
     from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
 
     out = {}
@@ -4650,6 +4747,13 @@ def phase_times(device):
     out["mpo_env"] = time_mpo_env(MPO_BENCH, device, "tensor_core")
     for key, shape in CLUSTER_TIMED.items():
         out[key] = time_mpo_env(shape, device, "cluster")
+    for key, shape in STREAMED_TIMED.items():
+        out[key] = time_mpo_env(shape, device, "streamed")
+    # the streamed path where the cluster path runs, beside it (the plain
+    # version's time is the cluster entry's: the same operands)
+    ms, _, bms, by = time_mpo_env(CLUSTER_BENCH, device, "streamed", yardstick=True)
+    plain = next(out[key][1] for key, shape in CLUSTER_TIMED.items() if shape is CLUSTER_BENCH)
+    out["mpo_env_streamed at CLUSTER_BENCH"] = (ms, plain, bms, by)
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {bms:.3f} ms ({by})")
@@ -4666,21 +4770,29 @@ def mpo_env_operands(shape, device, dtype):
     return cores, env0, mpo_entries(mpo), mpo.cores.shape[3]
 
 
-def time_mpo_env(shape, device, path):
+def time_mpo_env(shape, device, path, yardstick=False):
     """Kernel #3 and its plain version at ``shape``, float32, with the bound;
-    the kernel must run on ``path``."""
+    the kernel must run on ``path`` (with ``yardstick``, the streamed path
+    through ``mpo_env_streamed``, whatever path ``mpo_env`` would take, and
+    the plain version is not timed: None)."""
     from contractn_tpu_torch.ops import cuda_mpo
 
     cores, env0, entries, wdim = mpo_env_operands(shape, device, torch.float32)
     b, n, d, bond = shape["batch"], shape["n_sites"], cores.shape[2], shape["bond"]
-    before = cuda_mpo.mpo_env.launches_by_path[path]
-    ms = cuda_time(lambda: cuda_mpo.mpo_env(cores, env0, entries, wdim))
-    assert cuda_mpo.mpo_env.launches_by_path[path] > before, f"the {path} path did not launch"
+    if yardstick:
+        before = cuda_mpo.mpo_env_streamed.launches
+        ms = cuda_time(lambda: cuda_mpo.mpo_env_streamed(cores, env0, entries, wdim))
+        assert cuda_mpo.mpo_env_streamed.launches > before, "the streamed path did not launch"
+    else:
+        before = cuda_mpo.mpo_env.launches_by_path[path]
+        ms = cuda_time(lambda: cuda_mpo.mpo_env(cores, env0, entries, wdim))
+        assert cuda_mpo.mpo_env.launches_by_path[path] > before, f"the {path} path did not launch"
     # per sample and site: d*W ket and W bra GEMMs; the mix and the rescale
     gemm_site = 4 * d * wdim * bond ** 3
     elem_site = 2 * len(entries) * bond ** 2 + 3 * wdim * bond ** 2
     return (
         ms,
+        None if yardstick else
         cuda_time(lambda: cuda_mpo.mpo_env_plain(cores, env0, entries, wdim), reps=5),
         *bound_ms(b * n * gemm_site, b * n * elem_site,
                   4 * (cores.numel() + env0.numel() + b * (wdim * bond * bond + 1))),
@@ -4690,12 +4802,21 @@ def time_mpo_env(shape, device, path):
 # #3's cluster path in phase 5 and in the kernels line, by name
 CLUSTER_TIMED = {"mpo_env, cluster path, d=2 W=7 D=50": EXACT_BENCH,
                  "mpo_env, cluster path, Heisenberg D=128": CLUSTER_BENCH}
-# --mpo-times: (tag, shape, dtype) at which #3 is timed on one checkout
+# #3's streamed path in phase 5 and in the kernels line, by name
+STREAMED_TIMED = {"mpo_env, streamed path, AKLT D=64": STREAMED_BENCH,
+                  "mpo_env, streamed path, Heisenberg D=256": STREAMED_WIDE}
+# --mpo-times: (tag, shape, dtype, launcher) at which #3 is timed on one
+# checkout; "mpo_env_streamed" times the streamed path where the library
+# picks another
 MPO_TIMED = (
-    ("exact_bench", EXACT_BENCH, torch.float32),
-    *(("exact_mpo", s, dt) for s in EXACT_MPO for dt in (torch.float32, torch.bfloat16)),
-    ("cluster_bench", CLUSTER_BENCH, torch.float32),
-    ("mpo_bench", MPO_BENCH, torch.float32),
+    ("exact_bench", EXACT_BENCH, torch.float32, "mpo_env"),
+    *(("exact_mpo", s, dt, "mpo_env") for s in EXACT_MPO
+      for dt in (torch.float32, torch.bfloat16)),
+    ("cluster_bench", CLUSTER_BENCH, torch.float32, "mpo_env"),
+    ("mpo_bench", MPO_BENCH, torch.float32, "mpo_env"),
+    ("streamed_bench", STREAMED_BENCH, torch.float32, "mpo_env"),
+    ("streamed_wide", STREAMED_WIDE, torch.float32, "mpo_env"),
+    ("streamed_at_cluster_bench", CLUSTER_BENCH, torch.float32, "mpo_env_streamed"),
 )
 
 
@@ -4704,20 +4825,32 @@ def mpo_times(smi, root, tags=()):
     those whose tag is in ``tags``; CUDA events, median of 7 after a warm-up
     that also builds it), logged
     as one JSON line each with the path that launched, the card and the
-    versions.  The inputs are this script's, so two checkouts see the same
-    cores."""
+    versions, after a digest of the shapes its on-chip paths take.  The
+    inputs are this script's, so two checkouts see the same cores."""
+    import hashlib
+
     from contractn_tpu_torch.ops import cuda_mpo
 
     if not Path(cuda_mpo.__file__).resolve().is_relative_to(root):
         raise AssertionError(f"imported {cuda_mpo.__file__}, not the package in {root}")
     device = torch.device("cuda", 0)
-    for tag, shape, dtype in MPO_TIMED:
+    # which shapes the on-chip paths take (d*W <= 16, D <= 128, both dtypes):
+    # two checkouts with equal digests assign every such shape alike
+    lib = cuda_mpo.library()
+    on_chip = [(bf16, d, w, bond, path) for bf16 in (0, 1) for d in range(1, 17)
+               for w in range(1, 16 // d + 1) for bond in range(1, 129)
+               if (path := lib.cn_mpo_env_path(bf16, d, bond, w)) in (1, 2)]
+    log(json.dumps({"on_chip_shapes": len(on_chip),
+                    "digest": hashlib.sha256(repr(on_chip).encode()).hexdigest()[:16],
+                    "root": root.name}))
+    for tag, shape, dtype, launcher in MPO_TIMED:
         if tags and tag not in tags:
             continue
         cores, env0, entries, wdim = mpo_env_operands(shape, device, dtype)
         before = dict(cuda_mpo.mpo_env.launches_by_path)
-        ms = cuda_time(lambda: cuda_mpo.mpo_env(cores, env0, entries, wdim))
-        path = [p for p, k in cuda_mpo.mpo_env.launches_by_path.items() if k > before[p]]
+        ms = cuda_time(lambda: getattr(cuda_mpo, launcher)(cores, env0, entries, wdim))
+        path = ([p for p, k in cuda_mpo.mpo_env.launches_by_path.items() if k > before[p]]
+                if launcher == "mpo_env" else [launcher])
         log(json.dumps({
             "shape": tag, "d": cores.shape[2], "W": wdim, "D": shape["bond"],
             "n_sites": shape["n_sites"], "batch": shape["batch"],
@@ -4880,6 +5013,7 @@ def main():
     t4 = log_phase(3, t3, "4. main path")
     runs = main_path(device)
     runs.update(cluster_main_path(device))
+    runs.update(streamed_main_path(device))
     for path, (counts, secs) in runs.items():
         log(f"  path {path}: {secs:.3f} s, launches {counts}")
     for kernel, path in PATH_OF.items():
@@ -4890,6 +5024,10 @@ def main():
         raise AssertionError("the MPO main path did not run #3's tensor-core path")
     if runs["mpo_expectation_cluster"][0]["mpo_env.cluster"] < 1:
         raise AssertionError("the bond-128 MPO path did not run #3's cluster path")
+    streamed = runs["mpo_expectation_streamed"][0]
+    if (streamed["mpo_env.streamed"], streamed["mpo_env.tensor_core"],
+            streamed["mpo_env.cluster"]) != (1, 0, 0):
+        raise AssertionError(f"the AKLT MPO path did not run #3's streamed path alone: {streamed}")
     t5 = log_phase(4, t4, "5. times")
     times = phase_times(device)
     kernels = []
@@ -4899,6 +5037,8 @@ def main():
     entries.append(("mpo_env", "mpo_env", "mpo_expectation", "mpo_env.tensor_core"))
     entries += [(key, "mpo_env", "mpo_expectation_cluster", "mpo_env.cluster")
                 for key in CLUSTER_TIMED]
+    entries += [(key, "mpo_env", "mpo_expectation_streamed", "mpo_env.streamed")
+                for key in STREAMED_TIMED]
     for name, kernel, path, counter in entries:
         source, replaces = SOURCES[kernel]
         ms, plain, bms, by = times[name]

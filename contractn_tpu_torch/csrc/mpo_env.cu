@@ -132,10 +132,59 @@
 // Its times on the card, beside those of the FMA kernel it replaced, are
 // in PERF.md (section 6, kernel #3's row).
 //
+// Streamed path (launch_streamed, exported as cn_mpo_env_streamed), for
+// every valid shape neither on-chip path holds: d*W > 16 (the on-chip
+// paths hold a position's whole channel mix in registers, from a 16 x 16
+// kernel parameter), D > 128, and the shapes whose blocks do not fit a
+// CTA's shared memory (fp32 d 15-16 with W 1 at D 113-128).  It exists
+// because the Pallas kernel, which sizes only its VMEM tile, takes all of
+// them (spin-1 AKLT: d 3, W 14; spinful fermions: d 4, W 6; DMRG bonds of
+// 256 and more).
+//
+// Bound (H100 SXM, fp32 cores, 3xTF32 at 495 TFLOP/s): AKLT (d 3, W 14),
+// D = 64, B = 1000, N = 50: 2.20e12 GEMM FLOPs, 13.3 ms, on 2.46 GB of
+// cores (0.73 ms); Heisenberg (d 2, W 5), D = 256, B = 256, N = 50:
+// 8.59e12, 52.1 ms, on 6.71 GB (2.0 ms).  At these shapes a site's work is
+// large enough to pay for keeping the environment in device memory: at
+// D 256, Heisenberg, the GEMMs do about 50 FLOPs a byte that E, the ket
+// and mixed products and the output move through HBM in a site
+// (4dWD^3 against 4D^2(2W + 4dW) bytes), about the card's 3xTF32 rate
+// over its HBM bandwidth (49).
+//
+// Design: the environment E (B, W*D, D) fp32 lives in env_out, the
+// intermediates in one device workspace the wrapper allocates (layout
+// streamed_layout; the kernels allocate nothing).  The whole batch is one
+// chunk: each launch covers every sample.  Per site, four launches:
+//   1. ket: t[b, e] (W*D x D) = (E_b * inv_b) A_{b,e}, a batched tiled GEMM
+//      (streamed_gemm_kernel, 64 x 64 tiles, K steps of 32, 4 warps of
+//      32 x 32 on mma.sync, 3xTF32 for fp32 cores and one bf16 pass for
+//      bf16, fp32 accumulation) over z = (b, e).  The previous site's
+//      rescale is fused into its A-operand load: E * inv in fp32, then the
+//      cast to the core type (the Pallas kernel's env * (1/safe), then
+//      astype).  At site 0, A is env0 for every sample;
+//   2. channel mix: t2[b, v*d + p] = sum_q M[v*d+p][q] t[b, q], q = e*W + w
+//      ascending (entry order), from the dense (d*W)^2 matrix in device
+//      memory, its zero entries skipped (a warp-uniform branch; the AKLT
+//      chain has 42 nonzero of 1764), so it sums the entries alone; one
+//      thread per 4 positions (i, l), 16 outputs at a time in registers;
+//      rounded to the core type as it is stored;
+//   3. bra: out[b, v] (D x D) = A_b^T t2[b, v], the same GEMM template over
+//      z = (b, v) with A read transposed from the core; out is written
+//      unscaled into E, and each CTA writes sum |out| over its tile to a
+//      fixed slot (warp shuffles, then its 4 warps in order);
+//   4. rescale: one thread a sample adds its slots in order (no atomics, so
+//      the sum does not depend on timing), mean = sum / (W*D*D unpadded),
+//      guard mean > MIN_NORM, inv = 1/safe, log += log(safe).
+//   After the last site, E = E * inv in place.
+// Any D: the GEMM tiles and the mix mask their ragged edges (zero loads,
+// no stores), so the bond is not padded.  No TMA, wgmma or L2 residency
+// yet: PERF.md (section 6, kernel #3's row) has its times.
+//
 // One C function (path_for, exported as cn_mpo_env_path) picks the path
 // from the shape before the launch: the one-CTA tensor-core path wherever
-// one of its plans fits, the cluster path where only it fits, neither
-// beyond.  A failed launch of one path is never retried on the other.
+// one of its plans fits, the cluster path where only it fits, the streamed
+// path for every other shape with d, D, W >= 1.  A failed launch of one
+// path is never retried on another.
 
 #include "tc_common.cuh"
 
@@ -780,6 +829,333 @@ mpo_env_cluster_kernel(const T* __restrict__ cores, const float* __restrict__ en
   cluster_sync();  // no CTA leaves while a peer may still read its shared memory
 }
 
+// ------------------------------------------------------------ streamed path
+
+constexpr int kGemmThreads = 128;  // 4 warps, 2 x 2 over a tile, 32 x 32 each
+constexpr int kTileM = 64, kTileN = 64, kTileK = 32;
+constexpr int kMixThreads = 256;
+constexpr int kMixOut = 16;  // outputs a thread keeps in registers
+constexpr int kMixPos = 4;   // positions (i, l) a thread serves
+
+// Shared-memory row lengths of a GEMM's A tile (m, k) and B tile (k, n):
+// A's 4 words mod 32 serve the tf32 A pattern, B's 8 mod 32 the B pattern
+template <typename T>
+__host__ __device__ constexpr int gemm_lda() {
+  return kTileK + (sizeof(T) == 4 ? 4 : 8);
+}
+template <typename T>
+__host__ __device__ constexpr int gemm_smem() {
+  return (kTileM * gemm_lda<T>() + kTileK * (kTileN + 8)) * (int)sizeof(T) +
+         kGemmThreads / 32 * 4;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// One batched GEMM C[z] = A[z] B[z] (C fp32), z = zh * nlo + zl, each
+// operand offset by zh and zl times its own strides (elements)
+struct GemmArgs {
+  const void* a;  // A(m, k) = a[m*lda + k], or a[k*lda + m] when read transposed
+  const void* b;  // B(k, n) = b[k*ldb + n], of the core type
+  float* c;       // C(m, n) = c[m*ldc + n]
+  long long a_hi, a_lo, b_hi, b_lo, c_hi, c_lo;
+  int nlo, m, n, k, lda, ldb, ldc, tiles_m, tiles_n;
+  const float* scale;  // A's fp32 multiplier per zh before the cast (null: none)
+  float* part;         // sum |C| over each tile at part[z * tiles + tile] (null: none)
+};
+
+// CTA (z, tile): a 64 x 64 tile of C[z].  Each K step stages A (scaled and
+// cast to T) and B in shared memory through registers, the next step's
+// global loads in flight while this one's mma.sync run; out-of-range rows,
+// columns and k load as zero and store nothing.
+template <typename T, typename TA, bool kAT>
+__global__ void __launch_bounds__(kGemmThreads)
+streamed_gemm_kernel(const __grid_constant__ GemmArgs g) {
+  using Op = Tc<T>;
+  constexpr int KS = Op::kK;
+  constexpr int LDA = gemm_lda<T>(), LDB = kTileN + 8;
+  constexpr int kLoads = kTileM * kTileK / kGemmThreads;  // = kTileK * kTileN / kGemmThreads
+  __shared__ __align__(16) T a_s[kTileM * LDA];
+  __shared__ __align__(16) T b_s[kTileK * LDB];
+  __shared__ float red_s[kGemmThreads / 32];
+
+  const int tiles = g.tiles_m * g.tiles_n;
+  const long long z = blockIdx.x / tiles;
+  const int tile = (int)(blockIdx.x - z * tiles);
+  const int m0 = (tile / g.tiles_n) * kTileM, n0 = (tile % g.tiles_n) * kTileN;
+  const long long zh = z / g.nlo, zl = z - zh * g.nlo;
+  const TA* A = static_cast<const TA*>(g.a) + zh * g.a_hi + zl * g.a_lo;
+  const T* B = static_cast<const T*>(g.b) + zh * g.b_hi + zl * g.b_lo;
+  const float sc = g.scale ? g.scale[zh] : 1.f;
+  const int warp = threadIdx.x >> 5, lane = lane_id();
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+
+  T ra[kLoads], rb[kLoads];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int r = 0; r < kLoads; ++r) {
+      const int e = threadIdx.x + r * kGemmThreads;
+      // neighbouring threads on neighbouring addresses: along k for A, or
+      // along m where A is read transposed; along n for B
+      const int mi = kAT ? e % kTileM : e / kTileK, ki = kAT ? e / kTileM : e % kTileK;
+      const int m = m0 + mi, k = k0 + ki;
+      float v = 0.f;
+      if (m < g.m && k < g.k)
+        v = to_float(A[kAT ? (long long)k * g.lda + m : (long long)m * g.lda + k]);
+      ra[r] = from_float<T>(g.scale ? __fmul_rn(v, sc) : v);
+      const int kb = e / kTileN, n = n0 + e % kTileN;
+      rb[r] = k0 + kb < g.k && n < g.n ? B[(long long)(k0 + kb) * g.ldb + n] : from_float<T>(0.f);
+    }
+  };
+  auto stage = [&]() {
+#pragma unroll
+    for (int r = 0; r < kLoads; ++r) {
+      const int e = threadIdx.x + r * kGemmThreads;
+      const int mi = kAT ? e % kTileM : e / kTileK, ki = kAT ? e / kTileM : e % kTileK;
+      a_s[mi * LDA + ki] = ra[r];
+      b_s[(e / kTileN) * LDB + e % kTileN] = rb[r];
+    }
+  };
+
+  float acc[2][4][4] = {};
+  const int nk = (g.k + kTileK - 1) / kTileK;
+  load(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    stage();
+    __syncthreads();
+    if (kt + 1 < nk) load((kt + 1) * kTileK);
+#pragma unroll
+    for (int ks = 0; ks < kTileK; ks += KS) {
+      typename Op::AFrag af[2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        Op::load_a(af[mi], [&](int r, int c) { return a_s[(wm + mi * 16 + r) * LDA + ks + c]; }, gq,
+                   tq);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        typename Op::BFrag bf;
+        Op::load_b(bf, [&](int r, int c) { return b_s[(ks + r) * LDB + wn + ni * 8 + c]; }, gq, tq);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) Op::mma(acc[mi][ni], af[mi], bf);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* C = g.c + zh * g.c_hi + zl * g.c_lo;
+  float part = 0.f;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = m0 + wm + mi * 16 + gq + 8 * (c >> 1);
+        const int col = n0 + wn + ni * 8 + 2 * tq + (c & 1);
+        if (row < g.m && col < g.n) {
+          C[(long long)row * g.ldc + col] = acc[mi][ni][c];
+          part += fabsf(acc[mi][ni][c]);
+        }
+      }
+  if (g.part) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (lane == 0) red_s[warp] = part;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+      for (int w = 0; w < kGemmThreads / 32; ++w) s += red_s[w];
+      g.part[z * tiles + tile] = s;
+    }
+  }
+}
+
+// t2[b, o] = sum_q M[o][q] t[b, q] at each position of a (dd)-element
+// block, q ascending; nq = d*W blocks a sample in and out
+template <typename T>
+__global__ void __launch_bounds__(kMixThreads)
+streamed_mix_kernel(const float* __restrict__ t, T* __restrict__ t2, const float* __restrict__ mix,
+                    int nq, long long dd, int chunks) {
+  const long long b = blockIdx.x / chunks;
+  const long long p0 = (blockIdx.x - b * chunks) * (long long)(kMixThreads * kMixPos) + threadIdx.x;
+  const float* tb = t + b * nq * dd;
+  T* ob = t2 + b * nq * dd;
+  for (int o0 = 0; o0 < nq; o0 += kMixOut) {
+    float acc[kMixOut][kMixPos] = {};
+    for (int q = 0; q < nq; ++q) {
+      float x[kMixPos];
+#pragma unroll
+      for (int r = 0; r < kMixPos; ++r) {
+        const long long p = p0 + r * kMixThreads;
+        x[r] = p < dd ? tb[q * dd + p] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kMixOut; ++j) {
+        if (o0 + j < nq) {
+          const float m = __ldg(mix + (long long)(o0 + j) * nq + q);
+          if (m != 0.f) {  // the same for the whole warp; a zero entry adds nothing
+#pragma unroll
+            for (int r = 0; r < kMixPos; ++r) acc[j][r] = fmaf(m, x[r], acc[j][r]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMixOut; ++j) {
+      if (o0 + j < nq) {
+#pragma unroll
+        for (int r = 0; r < kMixPos; ++r) {
+          const long long p = p0 + r * kMixThreads;
+          if (p < dd) ob[(o0 + j) * dd + p] = from_float<T>(acc[j][r]);
+        }
+      }
+    }
+  }
+}
+
+// Per sample: its np tile sums added in order, the guarded mean, 1/safe and
+// the log
+__global__ void streamed_norm_kernel(const float* __restrict__ part, int np, int batch,
+                                     float count, float thr, float* __restrict__ inv,
+                                     float* __restrict__ log_out, int first) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  const float* p = part + (long long)b * np;
+  float total = 0.f;
+  for (int i = 0; i < np; ++i) total += p[i];
+  const float norm = __fdiv_rn(total, count);
+  const float safe = norm > thr ? norm : 1.f;
+  inv[b] = __fdiv_rn(1.f, safe);
+  log_out[b] = (first ? 0.f : log_out[b]) + logf(safe);
+}
+
+// env[b, :] *= inv[b] over `per` elements a sample
+__global__ void streamed_scale_kernel(float* __restrict__ env, const float* __restrict__ inv,
+                                      long long per, long long total) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x)
+    env[i] = __fmul_rn(env[i], inv[i / per]);
+}
+
+__host__ __device__ constexpr long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// The workspace: t (B, d*W, D, D) fp32, t2 (B, W*d, D, D) of the core type,
+// the bra's tile sums (B, W * tiles) and inv (B), each 256-byte aligned
+struct StreamedLayout {
+  long long t, t2, part, inv, total;  // byte offsets, total bytes
+  int tiles;                          // bra tiles of one (b, v): ceil(D / 64)^2
+};
+
+template <typename T>
+StreamedLayout streamed_layout(int phys, int bond, int wdim, int batch) {
+  auto up = [](long long x) { return cdiv(x, 256) * 256; };
+  const long long blocks = (long long)batch * phys * wdim * bond * bond;
+  StreamedLayout L;
+  L.tiles = (int)(cdiv(bond, kTileM) * cdiv(bond, kTileN));
+  L.t = 0;
+  L.t2 = up(blocks * 4);
+  L.part = L.t2 + up(blocks * (long long)sizeof(T));
+  L.inv = L.part + up((long long)batch * wdim * L.tiles * 4);
+  L.total = L.inv + up((long long)batch * 4);
+  return L;
+}
+
+template <typename T, typename TA, bool kAT>
+cudaError_t launch_gemm(const GemmArgs& g, long long nz, cudaStream_t stream) {
+  const long long blocks = nz * g.tiles_m * g.tiles_n;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  streamed_gemm_kernel<T, TA, kAT><<<(unsigned)blocks, kGemmThreads, 0, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// All sites of every sample; cores (B, N, d, D, D) at the unpadded bond,
+// env0 (W*D, D), mix (d*W, d*W) fp32 on the device, work of
+// streamed_layout's bytes
+template <typename T>
+int launch_streamed(const void* cores, const float* env0, const float* mix, void* work,
+                    float* env_out, float* log_out, int batch, int n_sites, int phys, int bond,
+                    int wdim, float count, float thr, cudaStream_t stream) {
+  if (batch < 1 || n_sites < 1 || phys < 1 || bond < 1 || wdim < 1 || !mix || !work)
+    return (int)cudaErrorInvalidValue;
+  const StreamedLayout L = streamed_layout<T>(phys, bond, wdim, batch);
+  char* ws = static_cast<char*>(work);
+  float* t = reinterpret_cast<float*>(ws + L.t);
+  T* t2 = reinterpret_cast<T*>(ws + L.t2);
+  float* part = reinterpret_cast<float*>(ws + L.part);
+  float* inv = reinterpret_cast<float*>(ws + L.inv);
+  const long long dd = (long long)bond * bond, site = phys * dd, env = wdim * dd;
+  const int nq = phys * wdim;
+  const int tn = (int)cdiv(bond, kTileN);
+
+  // ket: z = (b, e); M = W*D rows (w, i) of E, N = D, K = D
+  GemmArgs ket = {};
+  ket.a_lo = 0;
+  ket.b_hi = n_sites * site;
+  ket.b_lo = dd;
+  ket.c = t;
+  ket.c_hi = phys * env;
+  ket.c_lo = env;
+  ket.nlo = phys;
+  ket.m = wdim * bond;
+  ket.n = ket.k = ket.lda = ket.ldb = ket.ldc = bond;
+  ket.tiles_m = (int)cdiv(ket.m, kTileM);
+  ket.tiles_n = tn;
+  // bra: z = (b, v); A^T the core (rows (p, i), column j), B = t2[b, v]
+  GemmArgs bra = {};
+  bra.a_hi = n_sites * site;
+  bra.a_lo = 0;
+  bra.b = t2;
+  bra.b_hi = wdim * site;
+  bra.b_lo = site;
+  bra.c = env_out;
+  bra.c_hi = env;
+  bra.c_lo = dd;
+  bra.nlo = wdim;
+  bra.m = bra.n = bra.lda = bra.ldb = bra.ldc = bond;
+  bra.k = phys * bond;
+  bra.tiles_m = bra.tiles_n = tn;
+  bra.part = part;
+
+  const int chunks = (int)cdiv(dd, kMixThreads * kMixPos);
+  const long long mix_blocks = (long long)batch * chunks;
+  if (mix_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const T* c = static_cast<const T*>(cores);
+  for (int n = 0; n < n_sites; ++n) {
+    ket.a = n ? static_cast<const void*>(env_out) : env0;
+    ket.a_hi = n ? env : 0;
+    ket.scale = n ? inv : nullptr;
+    ket.b = c + n * site;
+    cudaError_t err = launch_gemm<T, float, false>(ket, (long long)batch * phys, stream);
+    if (err != cudaSuccess) return (int)err;
+    streamed_mix_kernel<T><<<(unsigned)mix_blocks, kMixThreads, 0, stream>>>(t, t2, mix, nq, dd,
+                                                                              chunks);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    bra.a = c + n * site;
+    if ((err = launch_gemm<T, T, true>(bra, (long long)batch * wdim, stream)) != cudaSuccess)
+      return (int)err;
+    streamed_norm_kernel<<<(unsigned)cdiv(batch, 128), 128, 0, stream>>>(
+        part, wdim * L.tiles, batch, count, thr, inv, log_out, n == 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const long long total = batch * env;
+  const long long scale_blocks = cdiv(total, 256);
+  streamed_scale_kernel<<<(unsigned)(scale_blocks < 4096 ? scale_blocks : 4096), 256, 0, stream>>>(
+      env_out, inv, env, total);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------ launches
 
 template <typename T, int DP, int NW, int NB>
@@ -853,31 +1229,39 @@ int launch_cluster(const void* cores, const float* env0, const Mix& mix, float* 
 }
 
 // The path for a shape, decided before any launch: the one-CTA tensor-core
-// path wherever one of its plans fits, else the cluster path where it fits
-constexpr int kOutOfReach = 0, kTensorCore = 1, kCluster = 2;
+// path wherever one of its plans fits, else the cluster path where it
+// fits, else the streamed path; out of reach only for d, D or W < 1
+constexpr int kOutOfReach = 0, kTensorCore = 1, kCluster = 2, kStreamed = 3;
 
 template <typename T>
 int path_for(int phys, int bond, int wdim) {
-  if (phys < 1 || wdim < 1 || bond < 1 || phys * wdim > kMaxMix) return kOutOfReach;
+  if (phys < 1 || wdim < 1 || bond < 1) return kOutOfReach;
+  if (phys * wdim > kMaxMix) return kStreamed;
   Config c;
   if (bond <= 64 && config_for(bond, wdim, c) && plan_for<T>(phys, c.dp, wdim).nbuf > 0)
     return kTensorCore;
-  return cluster_plan_for<T>(phys, bond, wdim).csize > 0 ? kCluster : kOutOfReach;
+  return cluster_plan_for<T>(phys, bond, wdim).csize > 0 ? kCluster : kStreamed;
 }
 
 template <typename T>
-int dispatch(const void* cores, const float* env0, const Mix& mix, float* env_out,
-             float* log_out, int batch, int n_sites, int phys, int bond, int wdim, float count,
-             float thr, cudaStream_t stream) {
-  switch (path_for<T>(phys, bond, wdim)) {
-    case kTensorCore:
-      return dispatch_tc<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
-                            count, thr, stream);
-    case kCluster:
-      return launch_cluster<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond,
-                               wdim, count, thr, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+int dispatch(const void* cores, const float* env0, const float* mix_host, const float* mix_dev,
+             void* work, float* env_out, float* log_out, int batch, int n_sites, int phys,
+             int bond, int wdim, float count, float thr, cudaStream_t stream) {
+  const int path = path_for<T>(phys, bond, wdim);
+  if (path == kStreamed)
+    return launch_streamed<T>(cores, env0, mix_dev, work, env_out, log_out, batch, n_sites, phys,
+                              bond, wdim, count, thr, stream);
+  if (path == kOutOfReach) return (int)cudaErrorInvalidValue;
+  // the on-chip paths take the mix by value, zero-padded to 16 x 16
+  const int nq = phys * wdim;
+  Mix mix = {};
+  for (int o = 0; o < nq; ++o)
+    for (int q = 0; q < nq; ++q) mix.m[o * kMaxMix + q] = mix_host[o * nq + q];
+  if (path == kTensorCore)
+    return dispatch_tc<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
+                          count, thr, stream);
+  return launch_cluster<T>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
+                           count, thr, stream);
 }
 
 }  // namespace
@@ -887,53 +1271,91 @@ extern "C" {
 // cores (B, N, d, D, D) fp32 or bf16, zero-padded by the wrapper to the
 // layout of the path cn_mpo_env_path names (padding keeps the path): on the
 // tensor-core path D * sizeof(T) a multiple of 16, on the cluster path D
-// the cluster's padded bond (cn_mpo_env_bond); env0 (W*D, D) fp32 on the
-// device, padded alike; mix (16, 16) fp32 in host memory, M[v*d+p][e*W+w]
-// zero-padded; `count` the unpadded W*D*D (the divisor of the mean).
+// the cluster's padded bond, on the streamed path D itself
+// (cn_mpo_env_bond); env0 (W*D, D) fp32 on the device, padded alike;
+// mix_host (d*W, d*W) fp32 in host memory, M[v*d+p][e*W+w]; on the
+// streamed path also mix_dev, the same matrix on the device, and work, a
+// device workspace of cn_mpo_env_workspace bytes (both may be null on the
+// other paths); `count` the unpadded W*D*D (the divisor of the mean).
 // Writes env_out (B, W*D, D) fp32 and log_out (B,) fp32.
 int cn_mpo_env(const void* cores, int cores_bf16, const float* env0, const float* mix_host,
-               float* env_out, float* log_out, int batch, int n_sites, int phys, int bond,
-               int wdim, float count, float thr, void* stream) {
+               const float* mix_dev, void* work, float* env_out, float* log_out, int batch,
+               int n_sites, int phys, int bond, int wdim, float count, float thr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Mix mix;
-  for (int i = 0; i < kMaxMix * kMaxMix; ++i) mix.m[i] = mix_host[i];
   if (cores_bf16)
-    return dispatch<__nv_bfloat16>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond,
-                                   wdim, count, thr, s);
-  return dispatch<float>(cores, env0, mix, env_out, log_out, batch, n_sites, phys, bond, wdim,
-                         count, thr, s);
+    return dispatch<__nv_bfloat16>(cores, env0, mix_host, mix_dev, work, env_out, log_out, batch,
+                                   n_sites, phys, bond, wdim, count, thr, s);
+  return dispatch<float>(cores, env0, mix_host, mix_dev, work, env_out, log_out, batch, n_sites,
+                         phys, bond, wdim, count, thr, s);
+}
+
+// The streamed path's launcher, which cn_mpo_env calls for the shapes it
+// assigns there; exported so that the path can be timed at any valid shape
+// (ops/cuda_mpo.py mpo_env_streamed).  Operands as for cn_mpo_env on the
+// streamed path, at the unpadded bond.
+int cn_mpo_env_streamed(const void* cores, int cores_bf16, const float* env0, const float* mix_dev,
+                        void* work, float* env_out, float* log_out, int batch, int n_sites,
+                        int phys, int bond, int wdim, float count, float thr, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cores_bf16)
+    return launch_streamed<__nv_bfloat16>(cores, env0, mix_dev, work, env_out, log_out, batch,
+                                          n_sites, phys, bond, wdim, count, thr, s);
+  return launch_streamed<float>(cores, env0, mix_dev, work, env_out, log_out, batch, n_sites, phys,
+                                bond, wdim, count, thr, s);
+}
+
+// Bytes of device workspace the streamed path needs for `batch` samples,
+// written to *bytes (0 on the other paths); returns 0, or
+// cudaErrorInvalidValue for d, D, W or B < 1.
+int cn_mpo_env_workspace(int cores_bf16, int phys, int bond, int wdim, int batch,
+                         long long* bytes) {
+  *bytes = 0;
+  if (phys < 1 || bond < 1 || wdim < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  *bytes = cores_bf16 ? streamed_layout<__nv_bfloat16>(phys, bond, wdim, batch).total
+                      : streamed_layout<float>(phys, bond, wdim, batch).total;
+  return 0;
 }
 
 // The path cn_mpo_env takes for these operands: 1 the one-CTA tensor-core
-// kernel, 2 the cluster kernel, 0 neither (D > 128, d*W > 16, or no layout
-// of either that fits the per-block limit).
+// kernel, 2 the cluster kernel, 3 the streamed kernels, 0 for d, D or W < 1.
 int cn_mpo_env_path(int cores_bf16, int phys, int bond, int wdim) {
   return cores_bf16 ? path_for<__nv_bfloat16>(phys, bond, wdim) : path_for<float>(phys, bond, wdim);
 }
 
-// The padded bond the cluster path lays the cores and env0 out at (a
-// multiple of 16, at least 32), or -1 where the shape takes another path.
+// The bond the cores and env0 are laid out at: the cluster's padded bond
+// (a multiple of 16, at least 32) on the cluster path, the bond itself on
+// the streamed path, -1 on the tensor-core path (the wrapper rounds a row
+// up to 16 bytes itself) and outside the kernel's reach.
 int cn_mpo_env_bond(int cores_bf16, int phys, int bond, int wdim) {
-  if (cn_mpo_env_path(cores_bf16, phys, bond, wdim) != kCluster) return -1;
+  const int path = cn_mpo_env_path(cores_bf16, phys, bond, wdim);
+  if (path == kStreamed) return bond;
+  if (path != kCluster) return -1;
   return cores_bf16 ? cluster_plan_for<__nv_bfloat16>(phys, bond, wdim).dp
                     : cluster_plan_for<float>(phys, bond, wdim).dp;
 }
 
 // CTAs that work on one sample on that path: 1 on the tensor-core path,
-// the cluster's size on the cluster path, 0 outside the kernel's reach.
+// the cluster's size on the cluster path, on the streamed path the CTAs of
+// one sample's ket GEMMs at a site (d * ceil(W*D/64) * ceil(D/64); its mix
+// and bra launches split the sample otherwise), 0 outside the kernel's
+// reach.
 int cn_mpo_env_cluster(int cores_bf16, int phys, int bond, int wdim) {
   const int path = cn_mpo_env_path(cores_bf16, phys, bond, wdim);
   if (path == kTensorCore) return 1;
   if (path == kOutOfReach) return 0;
+  if (path == kStreamed)
+    return (int)(phys * cdiv((long long)wdim * bond, kTileM) * cdiv(bond, kTileN));
   return cores_bf16 ? cluster_plan_for<__nv_bfloat16>(phys, bond, wdim).csize
                     : cluster_plan_for<float>(phys, bond, wdim).csize;
 }
 
-// Dynamic shared memory of one CTA on that path (bytes), or -1 outside
-// the kernel's reach.
+// Shared memory of one CTA on that path (bytes: dynamic on the on-chip
+// paths, the GEMM kernel's static tiles on the streamed path), or -1
+// outside the kernel's reach.
 int cn_mpo_env_smem(int cores_bf16, int phys, int bond, int wdim) {
   const int path = cn_mpo_env_path(cores_bf16, phys, bond, wdim);
   if (path == kOutOfReach) return -1;
+  if (path == kStreamed) return cores_bf16 ? gemm_smem<__nv_bfloat16>() : gemm_smem<float>();
   if (path == kCluster)
     return cores_bf16 ? cluster_layout<__nv_bfloat16>(
                             phys, wdim, cluster_plan_for<__nv_bfloat16>(phys, bond, wdim)).total

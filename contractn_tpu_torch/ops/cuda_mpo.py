@@ -1,14 +1,15 @@
-"""Hand-written CUDA kernel: batched MPO expectation with an on-chip
-environment.
+"""Hand-written CUDA kernel: batched MPO expectation environments.
 
 Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_mpo.py``
 (``mpo_expectation_pallas`` / ``make_mpo_pallas_fn`` -> ``_mpo_pallas_run``
 -> ``_kernel``).  The CUDA source is ``csrc/mpo_env.cu`` (entry
 ``cn_mpo_env``); its header states the bound on an H100 (``4*d*W*D^3`` GEMM
 FLOPs per sample and site, run as 3xTF32 on the tensor cores for fp32 cores
-and as one bf16 pass for bf16) and the design of its two paths, both on
-``mma.sync`` with the channel mix in place between the ket and bra GEMMs
-and the cores fetched by the TMA (``cp.async.bulk``, one copy a row):
+and as one bf16 pass for bf16) and the design of its three paths, all on
+``mma.sync``, which together take every real shape the Pallas kernel takes.
+The first two keep the environment on chip, the channel mix in place
+between the ket and bra GEMMs and the cores fetched by the TMA
+(``cp.async.bulk``, one copy a row):
 
 * the one-CTA tensor-core path: one CTA per sample walks every site with the
   ``(W*D, D)`` fp32 environment and the ket products resident in its shared
@@ -20,15 +21,26 @@ and the cores fetched by the TMA (``cp.async.bulk``, one copy a row):
   ket blocks at 33 <= D <= 64, such as d = 2 with W = 7, 8): a thread-block
   cluster of 2 to 8 CTAs per sample, each owning a slice of the bond's
   columns, reading the environment and the core columns it lacks from its
-  peers' shared memory.  It takes D <= 128 and d*W <= 16 where a cluster's
-  layout fits; the bond is zero-padded here to the cluster's (a multiple of
-  16, at least 32: ``cn_mpo_env_bond``).
+  peers' shared memory.  It takes D <= 128 and d*W <= 16 (``MAX_BOND``,
+  ``MAX_MIX``: the on-chip paths' limits) where a cluster's layout fits;
+  the bond is zero-padded here to the cluster's (a multiple of 16, at least
+  32: ``cn_mpo_env_bond``);
+* the streamed path, for every other shape: d*W > 16 (such as the spin-1
+  AKLT chain, d 3 and W 14), D > 128, and fp32 d 15-16 with W 1 at
+  D 113-128, where no cluster's blocks fit a CTA.  The environment and the
+  intermediates live in device memory (a workspace allocated here, of
+  ``cn_mpo_env_workspace`` bytes, and the dense ``(d*W, d*W)`` mix on the
+  device); each site is a batched ket GEMM, a mix kernel, a batched bra
+  GEMM and a rescale, each launch covering the whole batch, the bond
+  unpadded (the kernels mask the ragged edges).  Only device memory bounds
+  it: running out raises torch's own error.
 
 The library decides which, from the shape and before the launch
 (``cn_mpo_env_path``); each path counts its launches in
-``mpo_env.launches_by_path``.  Shapes neither holds (D > 128, d*W > 16, or
-too large for shared memory) raise ``ValueError``; a launch the card
-refuses raises ``RuntimeError``, and nothing falls back.
+``mpo_env.launches_by_path``.  Only d, D or W < 1 raise ``ValueError``; a
+launch the card refuses raises ``RuntimeError``, and nothing falls back.
+:func:`mpo_env_streamed` launches the streamed path at any valid shape, to
+time it beside another path; :func:`mpo_env` never calls it.
 
 Semantics (pinned against the Pallas kernel in interpret mode on the CPU):
 per site, ``d`` ket GEMMs ``(W D, D) x (D, D)`` with the environment cast to
@@ -55,23 +67,27 @@ from ..utils.errors import check_no_autograd
 from . import _build
 from .stabilize import MIN_NORM
 
+_LAUNCH_TAIL = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+]  # mix_dev, work, env_out, log_out, B, N, d, D, W, count, thr, stream
 _SIGNATURES = {
-    "cn_mpo_env": [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p,
-    ],
+    "cn_mpo_env": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   *_LAUNCH_TAIL],
+    "cn_mpo_env_streamed": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, *_LAUNCH_TAIL],
+    "cn_mpo_env_workspace": [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "cn_mpo_env_path": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "cn_mpo_env_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "cn_mpo_env_bond": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "cn_mpo_env_cluster": [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int],
 }
 # cn_mpo_env_path's answer: the kernel that takes a shape, or None
-PATHS = (None, "tensor_core", "cluster")
+PATHS = (None, "tensor_core", "cluster", "streamed")
 
-MAX_BOND = 128  # widest bond the environment kernel takes
-MAX_MIX = 16   # largest d * W the kernel's channel mix holds in registers
+# The on-chip paths' limits (the streamed path takes the shapes beyond)
+MAX_BOND = 128  # widest bond the on-chip paths take
+MAX_MIX = 16   # largest d * W their channel mix holds in registers
 
 
 def aligned_bond(bond, dtype):
@@ -162,34 +178,33 @@ def mpo_env_plain(cores, env0, entries, wdim):
 
 
 def _mix_matrix(entries, phys, wdim):
-    """Dense channel mix ``M[v*d + p, e*W + w] = W[p, e, w, v]`` for the
-    kernel, zero-padded to ``(MAX_MIX, MAX_MIX)`` in host memory (a zero
-    entry adds an exact zero, so it sums like ``entries``)."""
-    mix = np.zeros((MAX_MIX, MAX_MIX), np.float32)
+    """Dense channel mix ``M[v*d + p, e*W + w] = W[p, e, w, v]`` of shape
+    ``(d*W, d*W)`` in host memory (a zero entry adds an exact zero, so it
+    sums like ``entries``); the library zero-pads it to 16 x 16 for the
+    on-chip paths."""
+    mix = np.zeros((phys * wdim, phys * wdim), np.float32)
     for (d, e, w, v, coef) in entries:
         mix[v * phys + d, e * wdim + w] = coef
     return mix
 
 
-def mpo_env(cores, env0, entries, wdim):
-    """Launch wrapper: the environment kernel for CUDA tensors (counted in
-    ``mpo_env.launches`` and, by path, ``mpo_env.launches_by_path``),
-    :func:`mpo_env_plain` for CPU tensors.  Raises ``TNError`` where autograd
-    would record through it (the kernel has no backward)."""
+def _check_operands(cores, env0, wdim):
+    """Shapes of the kernel's operands; real cores only."""
     check_no_autograd("mpo_env", cores, env0)
     if cores.ndim != 5 or cores.shape[3] != cores.shape[4]:
         raise ValueError(f"cores must be (B, N, d, D, D), got {tuple(cores.shape)}")
-    batch, n_sites, phys, bond, _ = cores.shape
+    bond = cores.shape[3]
     if tuple(env0.shape) != (wdim * bond, bond):
         raise ValueError(
             f"env0 must be ({wdim * bond}, {bond}), got {tuple(env0.shape)}"
         )
     if cores.is_complex():
         raise TypeError("the MPO environment kernel takes real cores only")
-    if cores.device.type == "cpu":
-        return mpo_env_plain(cores, env0, entries, wdim)
-    if cores.device.type != "cuda":
-        raise ValueError(f"unsupported device {cores.device}")
+
+
+def _launch(entry, path, cores, env0, entries, wdim):
+    """Lay the operands out for ``path``, call the C ``entry`` and return
+    ``(env, log)`` at the caller's bond."""
     if cores.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(
             f"the MPO kernel takes float32 or bfloat16 cores, got {cores.dtype}"
@@ -199,45 +214,88 @@ def mpo_env(cores, env0, entries, wdim):
     if env0.device != cores.device or env0.dtype != torch.float32:
         raise ValueError("env0 must be float32 on the cores' device")
     lib = library()
+    batch, n_sites, phys, bond, _ = cores.shape
     bf16 = int(cores.dtype == torch.bfloat16)
-    path = PATHS[lib.cn_mpo_env_path(bf16, phys, bond, wdim)]
-    if path is None:
-        raise ValueError(
-            f"d={phys}, D={bond}, W={wdim} is outside the MPO kernel's reach: "
-            f"it takes D <= {MAX_BOND} and d*W <= {MAX_MIX}, where one CTA's "
-            f"or a cluster's layout fits {_build.SMEM_LIMIT} bytes of shared "
-            "memory per block (csrc/mpo_env.cu)"
-        )
     if path == "tensor_core":
         layout = aligned_bond(bond, cores.dtype)
-    else:
+    elif path == "cluster":
         layout = lib.cn_mpo_env_bond(bf16, phys, bond, wdim)
+    else:  # the streamed kernels mask the ragged edges
+        layout = bond
     pad = layout - bond
     cores_k = aligned16(pad_bond(cores, pad, 2))
     env0_k = pad_bond(env0.reshape(wdim, bond, bond), pad, 2).contiguous()
-    mix = _mix_matrix(entries, phys, wdim)
+    mix = _mix_matrix(entries, phys, wdim)  # alive until the call returns
+    host = (mix.ctypes.data,) if entry == "cn_mpo_env" else ()
+    mix_dev = work = None
+    if path == "streamed":  # the mix from device memory, E and the rest in `work`
+        nbytes = ctypes.c_longlong()
+        _build.check(lib.cn_mpo_env_workspace(bf16, phys, bond, wdim, batch,
+                                              ctypes.byref(nbytes)), "cn_mpo_env_workspace")
+        work = torch.empty(nbytes.value, dtype=torch.uint8, device=cores.device)
+        mix_dev = torch.from_numpy(mix).pin_memory().to(cores.device, non_blocking=True)
     env = torch.empty(
         batch, wdim * layout, layout, dtype=torch.float32, device=cores.device
     )
     log = torch.empty(batch, dtype=torch.float32, device=cores.device)
     with torch.cuda.device(cores.device):
-        rc = lib.cn_mpo_env(
-            cores_k.data_ptr(), bf16, env0_k.data_ptr(), mix.ctypes.data,
+        rc = getattr(lib, entry)(
+            cores_k.data_ptr(), bf16, env0_k.data_ptr(), *host,
+            None if mix_dev is None else mix_dev.data_ptr(),
+            None if work is None else work.data_ptr(),
             env.data_ptr(), log.data_ptr(), batch, n_sites, phys, layout, wdim,
             ctypes.c_float(float(wdim * bond * bond)),
             ctypes.c_float(float(np.float32(MIN_NORM))), _build.stream_of(cores),
         )
-    _build.check(rc, "cn_mpo_env")
-    mpo_env.launches += 1
-    mpo_env.launches_by_path[path] += 1
+    _build.check(rc, entry)
     if pad:
         env = env.reshape(batch, wdim, layout, layout)[:, :, :bond, :bond]
         env = env.reshape(batch, wdim * bond, bond)
     return env, log
 
 
+def mpo_env(cores, env0, entries, wdim):
+    """Launch wrapper: the environment kernel for CUDA tensors (counted in
+    ``mpo_env.launches`` and, by path, ``mpo_env.launches_by_path``),
+    :func:`mpo_env_plain` for CPU tensors.  Raises ``TNError`` where autograd
+    would record through it (the kernel has no backward)."""
+    _check_operands(cores, env0, wdim)
+    if cores.device.type == "cpu":
+        return mpo_env_plain(cores, env0, entries, wdim)
+    if cores.device.type != "cuda":
+        raise ValueError(f"unsupported device {cores.device}")
+    _, _, phys, bond, _ = cores.shape
+    bf16 = int(cores.dtype == torch.bfloat16)
+    path = PATHS[library().cn_mpo_env_path(bf16, phys, bond, wdim)]
+    if path is None:
+        raise ValueError(
+            f"d={phys}, D={bond}, W={wdim}: the MPO kernel takes d, D and W >= 1"
+        )
+    out = _launch("cn_mpo_env", path, cores, env0, entries, wdim)
+    mpo_env.launches += 1
+    mpo_env.launches_by_path[path] += 1
+    return out
+
+
 mpo_env.launches = 0
 mpo_env.launches_by_path = dict.fromkeys(PATHS[1:], 0)
+
+
+def mpo_env_streamed(cores, env0, entries, wdim):
+    """The streamed path (``cn_mpo_env_streamed``, the launcher
+    ``cn_mpo_env`` calls for the shapes it assigns there) at any valid shape
+    of CUDA tensors, also where the library picks an on-chip path: a
+    yardstick for timing the paths side by side (counted in
+    ``mpo_env_streamed.launches``).  :func:`mpo_env` never calls it."""
+    _check_operands(cores, env0, wdim)
+    if cores.device.type != "cuda":
+        raise ValueError(f"mpo_env_streamed needs CUDA tensors, got {cores.device}")
+    out = _launch("cn_mpo_env_streamed", "streamed", cores, env0, entries, wdim)
+    mpo_env_streamed.launches += 1
+    return out
+
+
+mpo_env_streamed.launches = 0
 
 
 def make_mpo_cuda_fn(mpo, left, right):

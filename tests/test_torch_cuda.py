@@ -44,9 +44,11 @@ def test_chain_kernel_pads_an_unaligned_bond_on_gpu(cuda_device, dtype):
 
 # TFIM at three bonds, then the edges of the tensor-core path's reach:
 # Heisenberg (W 5) at D <= 32 and D = 48, W 1, 2 and 4 at D = 64, W 8; then
-# the shapes only the cluster path takes, up to D = 128
+# the shapes only the cluster path takes, up to D = 128, and those only the
+# streamed path takes
 MPO_SHAPES = [{"n_sites": 8, "bond": bond, "batch": 12} for bond in (32, 48, 20)]
-MPO_SHAPES += chip_smoke.REACH_MPO + chip_smoke.EXACT_MPO + chip_smoke.CLUSTER_MPO
+MPO_SHAPES += (chip_smoke.REACH_MPO + chip_smoke.EXACT_MPO + chip_smoke.CLUSTER_MPO
+               + chip_smoke.STREAMED_MPO)
 # each shape in the dtypes it is held in (both, unless it names them)
 MPO_CASES = [(shape, dtype) for shape in MPO_SHAPES
              for dtype in shape.get("dtypes", (torch.float32, torch.bfloat16))]
@@ -74,25 +76,41 @@ def test_chain_kernel_reach_on_gpu(cuda_device, dtype, phys, bond):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("phys,bond,wdim", [(1, 40, 17), (2, 129, 5), (1, 129, 1)])
-def test_mpo_kernel_refuses_shapes_out_of_reach_on_gpu(cuda_device, phys, bond, wdim):
-    # d*W > 16, and D > 128 (the cluster path's widest bond)
-    cores = torch.zeros((2, 3, phys, bond, bond), device=cuda_device)
-    env0 = torch.zeros((wdim * bond, bond), device=cuda_device)
-    with pytest.raises(ValueError, match="outside the MPO kernel's reach"):
-        cuda_mpo.mpo_env(cores, env0, (), wdim)
+def test_mpo_kernel_streams_the_shapes_it_once_refused_on_gpu(cuda_device, dtype, phys,
+                                                             bond, wdim):
+    # d*W > 16 and D > 128, refused before the streamed path: now launched
+    # there and held against the plain version (random diagonal MPOs; the
+    # comparison needs samples whose close is conditioned enough, so 128)
+    shape = {"n_sites": 3, "bond": bond, "batch": 128, "mpo": (phys, wdim), "path": "streamed"}
+    tol = chip_smoke.TOL_F32 if dtype == torch.float32 else chip_smoke.TOL_BF16
+    chip_smoke.compare_mpo_env(shape, cuda_device, dtype, tol,
+                               f"mpo_env d={phys} W={wdim} D={bond}", seed=7)
 
 
 @pytest.mark.cuda
 def test_mpo_kernel_reach_on_gpu(cuda_device):
-    # every d*W <= 16 up to D 128 has a path, but fp32 d 15-16 with W 1 at
-    # D 113-128, where no cluster's layout fits a CTA's shared memory
+    # every d*W <= 64 up to D 256, in both dtypes, has a path; the on-chip
+    # paths keep every shape they took (all of d*W <= 16 to D 128 but fp32
+    # d 15-16 with W 1 at D 113-128), and the streamed path takes the rest
     lib = cuda_mpo.library()
-    out = {(bf16, d, w, bond)
-           for bf16 in (0, 1) for d in range(1, 17) for w in range(1, 16 // d + 1)
-           for bond in range(1, 129) if lib.cn_mpo_env_path(bf16, d, bond, w) == 0}
-    assert out == {(0, d, 1, bond) for d in (15, 16) for bond in range(113, 129)}
-    assert lib.cn_mpo_env_path(0, 2, 129, 5) == lib.cn_mpo_env_path(1, 1, 40, 17) == 0
+    no_plan = {(0, d, 1, bond) for d in (15, 16) for bond in range(113, 129)}
+    for bf16 in (0, 1):
+        for d in range(1, 65):
+            for w in range(1, 64 // d + 1):
+                for bond in range(1, 257):
+                    path = lib.cn_mpo_env_path(bf16, d, bond, w)
+                    on_chip = d * w <= 16 and bond <= 128 and (bf16, d, w, bond) not in no_plan
+                    assert path in ((1, 2) if on_chip else (3,)), (bf16, d, w, bond, path)
+                    if path == 3:  # laid out at its own bond, no padding
+                        assert lib.cn_mpo_env_bond(bf16, d, bond, w) == bond
+    assert lib.cn_mpo_env_path(0, 0, 64, 5) == lib.cn_mpo_env_path(1, 2, 0, 5) == 0
+    assert lib.cn_mpo_env_path(0, 2, 64, 0) == 0
+    # so mpo_env raises ValueError for such dimensions alone
+    with pytest.raises(ValueError, match="takes d, D and W >= 1"):
+        cuda_mpo.mpo_env(torch.zeros((2, 3, 0, 8, 8), device=cuda_device),
+                         torch.zeros((40, 8), device=cuda_device), (), 5)
 
 
 @pytest.mark.cuda

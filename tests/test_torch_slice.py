@@ -93,3 +93,13 @@ def test_chip_smoke_cluster_main_path_rehearsal_on_cpu():
     assert set(runs) == {"mpo_expectation_cluster"}
     counts, _ = runs["mpo_expectation_cluster"]
     assert "mpo_env.cluster" in counts and set(counts.values()) == {0}
+
+
+def test_chip_smoke_streamed_main_path_rehearsal_on_cpu():
+    # the AKLT chain (d 3, W 14) at a tiny size: nothing is launched on the
+    # CPU, and the checked samples agree with float64 MPO.expectation
+    shape = {"n_sites": 4, "bond": 8, "batch": 4, "mpo": "aklt", "path": "streamed"}
+    runs = chip_smoke.streamed_main_path(torch.device("cpu"), shape=shape, check=2)
+    assert set(runs) == {"mpo_expectation_streamed"}
+    counts, _ = runs["mpo_expectation_streamed"]
+    assert "mpo_env.streamed" in counts and set(counts.values()) == {0}
