@@ -12,10 +12,16 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
 3. kernels against plain: each hand kernel against its plain torch version
    on the card, float32 and bfloat16 cores, at small shapes whose bonds do
    not fill the kernels' tiles (MPS D 40 and 20, MPO D 24 and 48), at the
-   main-path shapes, and at the edges of the kernels' reach: MPS rings
+   main-path shapes (for #1 and #2 also ``FLAGSHIP_WIDE``, every sample
+   held), and at the edges of the kernels' reach: MPS rings
    shorter than a site (d 3 at D 120, d 20 at D 24) and x read in place
    (d 900), each for the closing chain (#1) and the carry-returning one (#2,
-   float32 and bfloat16 carry); MPO with W 1, 2, 4, 5 (Heisenberg) and 8,
+   float32 and bfloat16 carry); #1 and #2 on their streamed path at every
+   bond above 128 (``STREAMED_MPS``: d 2 at D 129, 192, 256 and 520, d 3 at
+   D 136, d 4 at D 256), asserting which path launched, and that path's
+   yardstick (``mps_chain_streamed``) at the tensor-core shapes above
+   (``SMALL_MPS``, ``UNALIGNED_MPS``, ``REACH_MPS``); MPO with W 1, 2, 4,
+   5 (Heisenberg) and 8,
    one core buffer where two do not fit, and the cluster path where no
    one-CTA plan fits (d 2, W 7, D 50; d 1, W 9, D 55; Heisenberg at D 65,
    96 and 128; spin-1 Heisenberg at D 128; d 2, W 8, D 64; d 1, W 16,
@@ -30,13 +36,18 @@ file).  Phases, each of which ends the run with a nonzero exit on failure:
    1000 parameter sets), the Heisenberg one at bond 128 (50 sites x
    1000 samples, #3's cluster path: ``cluster_main_path``) and the spin-1
    AKLT one at bond 64 (50 sites x 1000 samples, #3's streamed path:
-   ``streamed_main_path``); each kernel's
+   ``streamed_main_path``), and the flagship widened to bond 256 through
+   ``MPS.evaluate(x, kernel="cuda")`` and ``mps_evaluate_epilogue`` (#1 and
+   #2 on their streamed path, once each, the tensor-core path never:
+   ``streamed_chain_main_path``); each kernel's
    launch count is zeroed just before its path and read just after, and a
    small sample of each is held against a float64 reference;
 5. times: each kernel and its plain version with CUDA events (median of 7
    after a warm-up), beside the least time the card could take for
    fp32-accurate work (GEMMs as 3xTF32 on the tensor cores): #2 under both
-   carries, #3's cluster path at the shape the exact-D kernel last
+   carries, #1 and #2 on their streamed path at ``FLAGSHIP_WIDE`` (N 1000,
+   d 2, D 256, B 4096) beside ``mps_evaluate_auto``, #3's cluster path at
+   the shape the exact-D kernel last
    timed (d 2, W 7, D 50) and at full width (Heisenberg, D 128, 50 sites,
    1000 samples), and its streamed path at ``STREAMED_TIMED`` (AKLT D 64,
    50 x 1000; Heisenberg D 256, 50 x 256) and, as a yardstick, at the
@@ -173,8 +184,13 @@ at ``MPO_TIMED``'s shapes (or the tagged ones), one JSON line each with the
 path that launched
 (``mpo_times``): two versions of the kernel on one card in one call, the
 other unpacked into a directory that ``.gitignore`` lists (``git
-archive``), run parent, change, change, parent.  Without a GPU, or without the
-package beside this file, it exits nonzero and prints no result.
+archive``), run parent, change, change, parent.  ``--mps-times [CHECKOUT
+[TAG ...]]`` does the same for #1 and #2 at ``MPS_TIMED``'s shapes
+(``mps_times``: ``FLAGSHIP``, also through the streamed yardstick, and
+``FLAGSHIP_WIDE`` and bond 256 at batches 16-256 and at d 16, each beside
+``mps_evaluate_auto``; checkouts before the streamed chain path refuse
+bond 256 and lack the yardstick, their refusal logged).  Without a GPU, or
+without the package beside this file, it exits nonzero and prints no result.
 """
 
 import json
@@ -204,6 +220,18 @@ REACH_MPS = (
     {"n_sites": 11, "phys": 20, "bond": 24, "batch": 50},  # ring of 8 < d
     {"n_sites": 5, "phys": 900, "bond": 4, "batch": 40},  # x read in place
 )
+# Bonds above the tensor-core path's reach (128), which #1 and #2 take on
+# their streamed path: just past it, d 2 up to D 520, d 3 and 4.  200 rows
+# make four row tiles, the last one ragged.  A bf16 comparison counts only
+# the samples whose chain is conditioned within 1 / TOL_BF16, and phase 3
+# logs how many did.
+STREAMED_MPS = tuple({"n_sites": 3, "phys": d, "bond": bond, "batch": 200, "path": "streamed"}
+                     for d, bond in ((2, 129), (2, 192), (2, 256), (3, 136), (4, 256),
+                                     (2, 520)))
+# The flagship widened to bond 256 (524 MB of fp32 cores), the DMRG bond of
+# the JAX package's docs: #1 and #2 on the streamed path on the main path
+# (phase 4) and timed (phase 5)
+FLAGSHIP_WIDE = {**FLAGSHIP, "bond": 256, "path": "streamed"}
 REACH_MPO = (
     {"n_sites": 5, "bond": 48, "batch": 16, "mpo": "heisenberg"},  # W 5, fp32 one buffer
     {"n_sites": 5, "bond": 24, "batch": 16, "mpo": "heisenberg"},  # W 5 at D <= 32
@@ -1095,8 +1123,8 @@ def ptxas_report(text):
 
 def _demangle(name):
     """A short readable name for a mangled kernel template instance."""
-    base = re.search(r"(mps_tc_kernel|mpo_env_kernel|mpo_env_cluster_kernel|streamed_\w+?_kernel)",
-                     name)
+    base = re.search(r"(mps_tc_kernel|mps_streamed_\w+?_kernel|mpo_env_kernel|"
+                     r"mpo_env_cluster_kernel|streamed_\w+?_kernel)", name)
     args = re.findall(r"L[ib](\d+)E", name)
     dtype = "bf16" if "nv_bfloat16" in name else "f32"
     return f"{base.group(1) if base else name}<{','.join([dtype, *args])}>"
@@ -1105,6 +1133,8 @@ def _demangle(name):
 def kernel_smem(device):
     """Dynamic shared memory per CTA at the main-path shapes, from the
     kernels' own layout functions."""
+    import ctypes
+
     from contractn_tpu_torch.ops import cuda_mpo, cuda_mps
 
     mps = cuda_mps.tc_library()
@@ -1112,6 +1142,13 @@ def kernel_smem(device):
     d, bond = FLAGSHIP["phys"], FLAGSHIP["bond"]
     mpo_shapes = [(*mpo_dims(s), s["bond"])
                   for s in (MPO_BENCH, *EXACT_MPO, *CLUSTER_MPO, *STREAMED_MPO)]
+    for s in (FLAGSHIP_WIDE, *STREAMED_MPS):
+        p, b = s["phys"], s["bond"]
+        work = ctypes.c_longlong()
+        mps.cn_mps_streamed_workspace(b, s["batch"], ctypes.byref(work))
+        paths = "/".join(cuda_mps.PATHS[mps.cn_mps_path(bf16, p, b)] for bf16 in (0, 1))
+        log(f"  #1 and #2 d={p} D={b}: {paths} path (fp32/bf16), "
+            f"{work.value} bytes of workspace for B={s['batch']}")
     for bf16, tag in ((0, "fp32"), (1, "bf16")):
         log(f"  #1 and #2 (one layout) {tag} d={d} D={bond}: "
             f"{mps.cn_mps_evaluate_smem(bf16, d, bond)} bytes dynamic shared memory")
@@ -1136,13 +1173,20 @@ def phase_kernels_vs_plain(device):
     """Every kernel against its plain version, small and main-path shapes
     and the edges of each kernel's reach."""
     errors = {}
-    mps_shapes = [("small", SMALL_MPS, 1), ("main", FLAGSHIP, 1), ("D=20", UNALIGNED_MPS, 7)]
-    mps_shapes += [(f"d={s['phys']} D={s['bond']}", s, 8) for s in REACH_MPS]
+    mps_shapes = [("small", SMALL_MPS, 1), ("main", FLAGSHIP, 1), ("main wide", FLAGSHIP_WIDE, 1),
+                  ("D=20", UNALIGNED_MPS, 7)]
+    mps_shapes += [(f"d={s['phys']} D={s['bond']}", s, 8) for s in REACH_MPS + STREAMED_MPS]
+    timed = {"main": ("mps_evaluate", "mps_evaluate_epilogue"), "main wide": CHAIN_STREAMED_TIMED}
     for tag, shape, seed in mps_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             err1, err2 = compare_chains(shape, device, dtype, f"{tag} {dtype}", seed)
-            if tag == "main" and dtype == torch.float32:
-                errors["mps_evaluate"], errors["mps_evaluate_epilogue"] = err1, err2
+            if tag in timed and dtype == torch.float32:
+                errors[timed[tag][0]], errors[timed[tag][1]] = err1, err2
+    # the streamed path where the tensor-core path runs, beside it
+    for s in (SMALL_MPS, UNALIGNED_MPS, *REACH_MPS):
+        for dtype in (torch.float32, torch.bfloat16):
+            compare_streamed_yardstick(s, device, dtype, f"d={s['phys']} D={s['bond']} {dtype}",
+                                       seed=10)
     mpo_shapes = [(tag, shape) for tag, shape in
                   (("small", SMALL_MPO), ("ragged", RAGGED_MPO), ("main", MPO_BENCH))]
     mpo_shapes += [(f"{s['mpo']} D={s['bond']}", s)
@@ -1172,16 +1216,19 @@ def compare_chains(shape, device, dtype, what, seed):
     cores, left, right, x = mps_inputs(shape, device, dtype, seed=seed)
     cond = mps_condition(cores, left, right, x)
     tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-    before = cuda_mps.cuda_mps_evaluate.launches
+    path = shape.get("path", "tensor_core")
+    before = cuda_mps.cuda_mps_evaluate.launches_by_path[path]
     got = cuda_mps.cuda_mps_evaluate(cores, left, right, x)
-    assert cuda_mps.cuda_mps_evaluate.launches == before + 1, "#1 did not launch"
+    assert cuda_mps.cuda_mps_evaluate.launches_by_path[path] == before + 1, (
+        f"#1 did not launch on the {path} path")
     err1 = compare_split(got, cuda_mps.mps_evaluate_plain(cores, left, right, x), tol,
                          f"#1 mps_evaluate {what}", cond)
     errs = {}
     for acc in (torch.float32, torch.bfloat16):
-        before = cuda_epilogue.epilogue_chain.launches
+        before = cuda_epilogue.epilogue_chain.launches_by_path[path]
         got = cuda_epilogue.epilogue_chain(cores, left, x, acc)
-        assert cuda_epilogue.epilogue_chain.launches == before + 1, "#2 did not launch"
+        assert cuda_epilogue.epilogue_chain.launches_by_path[path] == before + 1, (
+            f"#2 did not launch on the {path} path")
         assert got[0].dtype == acc and got[0].shape == (x.shape[0], cores.shape[2])
         ref = cuda_epilogue.epilogue_chain_plain(cores, left, x, acc)
         close = [(v.float() @ right, lg) for v, lg in (got, ref)]
@@ -1189,6 +1236,30 @@ def compare_chains(shape, device, dtype, what, seed):
                                   tol if acc == torch.float32 else TOL_BF16,
                                   f"#2 epilogue {what} acc {acc}", cond)
     return err1, errs[torch.float32]
+
+
+def compare_streamed_yardstick(shape, device, dtype, what, seed):
+    """The chain kernels' streamed path through ``mps_chain_streamed`` (at
+    a shape the entries give the tensor-core path) against the plain
+    versions: the close (#1) and the carry under both carries (#2), each
+    launch counted once."""
+    from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
+
+    cores, left, right, x = mps_inputs(shape, device, dtype, seed=seed)
+    cond = mps_condition(cores, left, right, x)
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    for acc in (None, torch.float32, torch.bfloat16):
+        before = cuda_mps.mps_chain_streamed.launches
+        got = cuda_mps.mps_chain_streamed(cores, left, right, x, acc)
+        assert cuda_mps.mps_chain_streamed.launches == before + 1, "the yardstick did not launch"
+        if acc is None:
+            ref = cuda_mps.mps_evaluate_plain(cores, left, right, x)
+        else:
+            assert got[0].dtype == acc and got[0].shape == (x.shape[0], cores.shape[2])
+            ref = cuda_epilogue.epilogue_chain_plain(cores, left, x, acc)
+            got, ref = [(v.float() @ right, lg) for v, lg in (got, ref)]
+        compare_split(got, ref, TOL_BF16 if acc == torch.bfloat16 else tol,
+                      f"streamed yardstick {what} {'close' if acc is None else acc}", cond)
 
 
 def compare_mpo_env(shape, device, dtype, tol, what, seed=3):
@@ -1219,22 +1290,22 @@ def compare_mpo_env(shape, device, dtype, tol, what, seed=3):
 def reset_counters():
     from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
 
-    cuda_mps.cuda_mps_evaluate.launches = 0
-    cuda_epilogue.epilogue_chain.launches = 0
-    cuda_mpo.mpo_env.launches = 0
-    for path in cuda_mpo.mpo_env.launches_by_path:
-        cuda_mpo.mpo_env.launches_by_path[path] = 0
+    for fn in (cuda_mps.cuda_mps_evaluate, cuda_epilogue.epilogue_chain, cuda_mpo.mpo_env):
+        fn.launches = 0
+        for path in fn.launches_by_path:
+            fn.launches_by_path[path] = 0
 
 
 def read_counters():
     from contractn_tpu_torch.ops import cuda_epilogue, cuda_mpo, cuda_mps
 
-    return {
-        "mps_evaluate": cuda_mps.cuda_mps_evaluate.launches,
-        "mps_evaluate_epilogue": cuda_epilogue.epilogue_chain.launches,
-        "mpo_env": cuda_mpo.mpo_env.launches,
-        **{f"mpo_env.{path}": n for path, n in cuda_mpo.mpo_env.launches_by_path.items()},
-    }
+    counts = {}
+    for name, fn in (("mps_evaluate", cuda_mps.cuda_mps_evaluate),
+                     ("mps_evaluate_epilogue", cuda_epilogue.epilogue_chain),
+                     ("mpo_env", cuda_mpo.mpo_env)):
+        counts[name] = fn.launches
+        counts.update({f"{name}.{path}": n for path, n in fn.launches_by_path.items()})
+    return counts
 
 
 def _example(name):
@@ -1325,6 +1396,33 @@ def streamed_main_path(device, shape=STREAMED_BENCH, check=16):
     runs = {}
     mpo_expectation_path(_drive_into(runs, device), "mpo_expectation_streamed", device, shape,
                          check)
+    return runs
+
+
+def streamed_chain_main_path(device, shape=FLAGSHIP_WIDE, check=16):
+    """#1 and #2 on their streamed path as a user reaches them: the flagship
+    widened to bond 256 (``shape``) through ``MPS.evaluate(x,
+    kernel="cuda")`` and ``mps_evaluate_epilogue``, each with its launch
+    counts zeroed just before and read just after, ``check`` samples held
+    against float64; returns ``{path: (counts, seconds)}``."""
+    from contractn_tpu_torch.models import MPS
+    from contractn_tpu_torch.ops import mps_evaluate
+    from contractn_tpu_torch.ops.cuda_epilogue import mps_evaluate_epilogue
+
+    runs = {}
+    drive = _drive_into(runs, device)
+    n, d, bond, batch = (shape[k] for k in ("n_sites", "phys", "bond", "batch"))
+    gen = torch.Generator(device=device).manual_seed(1)
+    mps = MPS.random(n, d, bond, generator=gen, device=device)
+    x = torch.randn((batch, n, d), generator=gen, device=device)
+    amp, lg = drive("mps_evaluate_streamed", lambda: mps.evaluate(x, kernel="cuda"))
+    ref = mps_evaluate(mps.cores.double(), mps.left.double(), mps.right.double(),
+                       x[:check].double())
+    cond = mps_condition(mps.cores, mps.left, mps.right, x[:check])
+    _check_reference(f"MPS.evaluate at D={bond}", (amp, lg), ref, batch, cond)
+    amp2, lg2 = drive("mps_evaluate_epilogue_streamed",
+                      lambda: mps_evaluate_epilogue(mps.cores, mps.left, mps.right, x))
+    _check_reference(f"mps_evaluate_epilogue at D={bond}", (amp2, lg2), ref, batch, cond)
     return runs
 
 
@@ -1511,8 +1609,8 @@ def training_paths(device, smi, train=TRAIN, odd_sites=TRAIN_ODD_SITES, born=BOR
     for path, (counts, _) in runs.items():
         # on the CPU (a rehearsal) the wrappers run their plain versions
         want = int(path == "serve_trained" and device.type == "cuda")
-        if counts["mps_evaluate"] != want or any(
-                v for k, v in counts.items() if k != "mps_evaluate"):
+        if counts["mps_evaluate"] != want or any(  # kernels, not their per-path counts
+                v for k, v in counts.items() if k != "mps_evaluate" and "." not in k):
             raise AssertionError(f"path {path}: launches {counts}")
     return runs
 
@@ -4416,8 +4514,8 @@ def parallel_paths(device, smi, sizes=PARALLEL):
     par_cv_path(device, smi, sizes["cv"], runs, meshes)
     for path, (counts, _) in runs.items():
         want = int(path == "forward_reference" and device.type == "cuda")
-        if counts["mps_evaluate"] != want or any(
-                v for k, v in counts.items() if k != "mps_evaluate"):
+        if counts["mps_evaluate"] != want or any(  # kernels, not their per-path counts
+                v for k, v in counts.items() if k != "mps_evaluate" and "." not in k):
             raise AssertionError(f"path {path}: launches {counts}")
     return dict(runs)
 
@@ -4744,6 +4842,7 @@ def phase_times(device):
             cuda_time(lambda: cuda_epilogue.epilogue_chain_plain(cores, left, x, acc), reps=5),
             *bound_ms(gemm, elem, in_bytes - 4 * bond + out_bytes),
         )
+    out.update(time_streamed_chains(device))
     out["mpo_env"] = time_mpo_env(MPO_BENCH, device, "tensor_core")
     for key, shape in CLUSTER_TIMED.items():
         out[key] = time_mpo_env(shape, device, "cluster")
@@ -4757,6 +4856,44 @@ def phase_times(device):
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {bms:.3f} ms ({by})")
+    return out
+
+
+def time_streamed_chains(device, shape=FLAGSHIP_WIDE):
+    """#1 and #2 (float32 carry) on their streamed path at ``shape``, with
+    the plain version, the bound and, logged beside them,
+    ``mps_evaluate_auto``: the loop ``MPS.evaluate(kernel="auto")`` runs
+    where it does not take the kernel.  Returns ``{name: (ms, plain_ms,
+    bound_ms, bound_by)}`` keyed by ``CHAIN_STREAMED_TIMED``."""
+    from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
+    from contractn_tpu_torch.ops.scan import mps_evaluate_auto
+
+    n, d, bond, batch = (shape[k] for k in ("n_sites", "phys", "bond", "batch"))
+    cores, left, right, x = mps_inputs(shape, device, torch.float32, seed=5)
+    gemm = batch * n * 2 * d * bond * bond
+    elem = batch * n * (2 * d * bond + 3 * bond)
+    in_bytes = 4 * (cores.numel() + x.numel() + 2 * bond)
+    key1, key2 = CHAIN_STREAMED_TIMED
+    out = {}
+    before = (cuda_mps.cuda_mps_evaluate.launches_by_path["streamed"],
+              cuda_epilogue.epilogue_chain.launches_by_path["streamed"])
+    out[key1] = (
+        cuda_time(lambda: cuda_mps.cuda_mps_evaluate(cores, left, right, x)),
+        cuda_time(lambda: cuda_mps.mps_evaluate_plain(cores, left, right, x), reps=5),
+        *bound_ms(gemm, elem, in_bytes + 8 * batch),
+    )
+    out[key2] = (
+        cuda_time(lambda: cuda_epilogue.epilogue_chain(cores, left, x, torch.float32)),
+        cuda_time(lambda: cuda_epilogue.epilogue_chain_plain(cores, left, x, torch.float32),
+                  reps=5),
+        *bound_ms(gemm, elem, in_bytes - 4 * bond + batch * (4 * bond + 4)),
+    )
+    assert (cuda_mps.cuda_mps_evaluate.launches_by_path["streamed"] > before[0]
+            and cuda_epilogue.epilogue_chain.launches_by_path["streamed"] > before[1]), (
+        "the streamed path did not launch")
+    auto = cuda_time(lambda: mps_evaluate_auto(cores, left, right, x), reps=5)
+    log(f"  #1 at N={n} d={d} D={bond} B={batch}: streamed path {out[key1][0]:.3f} ms, "
+        f"mps_evaluate_auto (the loop kernel='auto' would otherwise run) {auto:.3f} ms")
     return out
 
 
@@ -4799,6 +4936,29 @@ def time_mpo_env(shape, device, path, yardstick=False):
     )
 
 
+# #1 and #2 on their streamed path in phase 5 and in the kernels line, by name
+CHAIN_STREAMED_TIMED = ("mps_evaluate, streamed path, D=256",
+                        "mps_evaluate_epilogue, streamed path, D=256")
+# --mps-times: (tag, shape, launcher) at which #1 and #2 are timed on one
+# checkout, float32: the flagship, on the tensor-core path and on the
+# streamed yardstick; the flagship widened to bond 256, and that bond at
+# small batches and at d 16, each beside mps_evaluate_auto (the loop
+# MPS.evaluate(kernel="auto") runs where it does not take the kernel).
+# Checkouts before the streamed chain path refuse bond 256 and have no
+# yardstick.
+WIDE_SMALL_BATCH = tuple({**FLAGSHIP_WIDE, "batch": b} for b in (16, 64, 256))
+WIDE_D16 = tuple({"n_sites": 100, "phys": 16, "bond": 256, "batch": b} for b in (16, 4096))
+MPS_TIMED = (
+    ("flagship", FLAGSHIP, "cuda_mps_evaluate"),
+    ("flagship", FLAGSHIP, "epilogue_chain"),
+    ("flagship_yardstick", FLAGSHIP, "mps_chain_streamed"),
+    ("flagship_wide", FLAGSHIP_WIDE, "cuda_mps_evaluate"),
+    ("flagship_wide", FLAGSHIP_WIDE, "epilogue_chain"),
+    ("flagship_wide", FLAGSHIP_WIDE, "mps_evaluate_auto"),
+    *((f"wide_{tag}{s['batch']}", s, launcher)
+      for tag, shapes in (("b", WIDE_SMALL_BATCH), ("d16_b", WIDE_D16)) for s in shapes
+      for launcher in ("cuda_mps_evaluate", "mps_evaluate_auto")),
+)
 # #3's cluster path in phase 5 and in the kernels line, by name
 CLUSTER_TIMED = {"mpo_env, cluster path, d=2 W=7 D=50": EXACT_BENCH,
                  "mpo_env, cluster path, Heisenberg D=128": CLUSTER_BENCH}
@@ -4858,6 +5018,55 @@ def mpo_times(smi, root, tags=()):
             "root": root.name, "card": smi, "torch": torch.__version__,
             "cuda": torch.version.cuda}))
         del cores
+
+def mps_times(smi, root, tags=()):
+    """Kernels #1 and #2 of the checkout ``root`` at each shape of
+    ``MPS_TIMED`` (or those whose tag is in ``tags``; CUDA events, median of
+    7 after a warm-up that also builds them), logged as one JSON line each
+    with the path that launched, or the checkout's refusal, after a digest
+    of the shapes its tensor-core path takes (d 1-64, D 1-520, both
+    dtypes).  The inputs are this script's, so two checkouts see the same
+    cores."""
+    import hashlib
+
+    from contractn_tpu_torch.ops import cuda_epilogue, cuda_mps
+    from contractn_tpu_torch.ops.scan import mps_evaluate_auto
+
+    if not Path(cuda_mps.__file__).resolve().is_relative_to(root):
+        raise AssertionError(f"imported {cuda_mps.__file__}, not the package in {root}")
+    device = torch.device("cuda", 0)
+    lib = cuda_mps.tc_library()
+    tensor_core = [(bf16, d, bond) for bf16 in (0, 1) for d in range(1, 65)
+                   for bond in range(1, 521) if lib.cn_mps_evaluate_smem(bf16, d, bond) >= 0]
+    log(json.dumps({"tensor_core_shapes": len(tensor_core),
+                    "digest": hashlib.sha256(repr(tensor_core).encode()).hexdigest()[:16],
+                    "root": root.name}))
+    closing = {"cuda_mps_evaluate": cuda_mps.cuda_mps_evaluate,
+               "mps_chain_streamed": getattr(cuda_mps, "mps_chain_streamed", None),
+               "mps_evaluate_auto": mps_evaluate_auto}
+    for tag, shape, launcher in MPS_TIMED:
+        if tags and tag not in tags:
+            continue
+        cores, left, right, x = mps_inputs(shape, device, torch.float32, seed=5)
+        fn = closing.get(launcher, cuda_epilogue.epilogue_chain)
+        call = ((lambda: fn(cores, left, right, x)) if launcher in closing
+                else (lambda: fn(cores, left, x, torch.float32)))
+        by_path = getattr(fn, "launches_by_path", None)
+        before = dict(by_path or {})
+        record = {"shape": tag, "launcher": launcher, "d": shape["phys"], "D": shape["bond"],
+                  "n_sites": shape["n_sites"], "batch": shape["batch"], "dtype": "float32"}
+        try:
+            if fn is None:
+                raise ValueError(f"this checkout has no {launcher}")
+            record["ms"] = cuda_time(call)
+            record["path"] = ([p for p, k in by_path.items() if k > before[p]]
+                              if by_path is not None else launcher)
+        except (ValueError, RuntimeError) as err:
+            record["refused"] = str(err)
+        log(json.dumps({**record, "root": root.name, "card": smi, "torch": torch.__version__,
+                        "cuda": torch.version.cuda}))
+        del cores, x
+
 
 SOURCES = {
     "mps_evaluate": ("contractn_tpu_torch/csrc/mps_chain_tc.cu",
@@ -4986,10 +5195,10 @@ def main():
     log("== 1. device")
     smi, card = phase_device()
     device = torch.device("cuda", 0)
-    if len(sys.argv) >= 2 and sys.argv[1] == "--mpo-times":
+    if len(sys.argv) >= 2 and sys.argv[1] in ("--mpo-times", "--mps-times"):
         root = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT
         sys.path.insert(0, str(root))
-        mpo_times(smi, root, sys.argv[3:])
+        (mpo_times if sys.argv[1] == "--mpo-times" else mps_times)(smi, root, sys.argv[3:])
         return
     log("== 2. build")
     phase_build()
@@ -5014,12 +5223,21 @@ def main():
     runs = main_path(device)
     runs.update(cluster_main_path(device))
     runs.update(streamed_main_path(device))
+    runs.update(streamed_chain_main_path(device))
     for path, (counts, secs) in runs.items():
         log(f"  path {path}: {secs:.3f} s, launches {counts}")
     for kernel, path in PATH_OF.items():
         counts = runs[path][0]
         if counts[kernel] < 1:
             raise AssertionError(f"the {path} path never launched kernel {kernel}")
+    for path, kernel in (("mps_evaluate", "mps_evaluate"),
+                         ("mps_evaluate_epilogue", "mps_evaluate_epilogue")):
+        if runs[path][0][f"{kernel}.tensor_core"] < 1:
+            raise AssertionError(f"the flagship {path} path did not run the tensor-core path")
+        wide = runs[f"{path}_streamed"][0]
+        if (wide[f"{kernel}.streamed"], wide[f"{kernel}.tensor_core"]) != (1, 0):
+            raise AssertionError(f"the bond-256 {path} path did not run the streamed path "
+                                 f"alone, once: {wide}")
     if runs["mpo_expectation"][0]["mpo_env.tensor_core"] < 1:
         raise AssertionError("the MPO main path did not run #3's tensor-core path")
     if runs["mpo_expectation_cluster"][0]["mpo_env.cluster"] < 1:
@@ -5034,6 +5252,9 @@ def main():
     # (name, kernel, the run and the counter that hold its launches)
     entries = [(kernel, kernel, PATH_OF[kernel], kernel) for kernel in SOURCES
                if kernel != "mpo_env"]
+    entries += [(key, kernel, f"{kernel}_streamed", f"{kernel}.streamed")
+                for key, kernel in zip(CHAIN_STREAMED_TIMED,
+                                       ("mps_evaluate", "mps_evaluate_epilogue"))]
     entries.append(("mpo_env", "mpo_env", "mpo_expectation", "mpo_env.tensor_core"))
     entries += [(key, "mpo_env", "mpo_expectation_cluster", "mpo_env.cluster")
                 for key in CLUSTER_TIMED]

@@ -156,9 +156,10 @@
 // streamed_layout; the kernels allocate nothing).  The whole batch is one
 // chunk: each launch covers every sample.  Per site, four launches:
 //   1. ket: t[b, e] (W*D x D) = (E_b * inv_b) A_{b,e}, a batched tiled GEMM
-//      (streamed_gemm_kernel, 64 x 64 tiles, K steps of 32, 4 warps of
-//      32 x 32 on mma.sync, 3xTF32 for fp32 cores and one bf16 pass for
-//      bf16, fp32 accumulation) over z = (b, e).  The previous site's
+//      (streamed_gemm_kernel on tc_common.cuh's TileGemm, 64 x 64 tiles,
+//      K steps of 32, 4 warps of 32 x 32 on mma.sync, 3xTF32 for fp32
+//      cores and one bf16 pass for bf16, fp32 accumulation) over
+//      z = (b, e).  The previous site's
 //      rescale is fused into its A-operand load: E * inv in fp32, then the
 //      cast to the core type (the Pallas kernel's env * (1/safe), then
 //      astype).  At site 0, A is env0 for every sample;
@@ -831,36 +832,16 @@ mpo_env_cluster_kernel(const T* __restrict__ cores, const float* __restrict__ en
 
 // ------------------------------------------------------------ streamed path
 
-constexpr int kGemmThreads = 128;  // 4 warps, 2 x 2 over a tile, 32 x 32 each
-constexpr int kTileM = 64, kTileN = 64, kTileK = 32;
+using Gemm = TileGemm<float, 2>;  // the tile's constants, the same for either T
+constexpr int kGemmThreads = Gemm::kThreads;  // 4 warps, 2 x 2 over a tile, 32 x 32 each
+constexpr int kTileM = Gemm::kM, kTileN = Gemm::kN;
 constexpr int kMixThreads = 256;
 constexpr int kMixOut = 16;  // outputs a thread keeps in registers
 constexpr int kMixPos = 4;   // positions (i, l) a thread serves
 
-// Shared-memory row lengths of a GEMM's A tile (m, k) and B tile (k, n):
-// A's 4 words mod 32 serve the tf32 A pattern, B's 8 mod 32 the B pattern
-template <typename T>
-__host__ __device__ constexpr int gemm_lda() {
-  return kTileK + (sizeof(T) == 4 ? 4 : 8);
-}
 template <typename T>
 __host__ __device__ constexpr int gemm_smem() {
-  return (kTileM * gemm_lda<T>() + kTileK * (kTileN + 8)) * (int)sizeof(T) +
-         kGemmThreads / 32 * 4;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+  return TileGemm<T, 2>::kSmemBytes + kGemmThreads / 32 * 4;
 }
 
 // One batched GEMM C[z] = A[z] B[z] (C fp32), z = zh * nlo + zl, each
@@ -875,19 +856,14 @@ struct GemmArgs {
   float* part;         // sum |C| over each tile at part[z * tiles + tile] (null: none)
 };
 
-// CTA (z, tile): a 64 x 64 tile of C[z].  Each K step stages A (scaled and
-// cast to T) and B in shared memory through registers, the next step's
-// global loads in flight while this one's mma.sync run; out-of-range rows,
-// columns and k load as zero and store nothing.
+// CTA (z, tile): a 64 x 64 tile of C[z] on TileGemm's loop (tc_common.cuh),
+// A scaled and cast to T as it is loaded; out-of-range rows, columns and k
+// load as zero and store nothing.
 template <typename T, typename TA, bool kAT>
 __global__ void __launch_bounds__(kGemmThreads)
 streamed_gemm_kernel(const __grid_constant__ GemmArgs g) {
-  using Op = Tc<T>;
-  constexpr int KS = Op::kK;
-  constexpr int LDA = gemm_lda<T>(), LDB = kTileN + 8;
-  constexpr int kLoads = kTileM * kTileK / kGemmThreads;  // = kTileK * kTileN / kGemmThreads
-  __shared__ __align__(16) T a_s[kTileM * LDA];
-  __shared__ __align__(16) T b_s[kTileK * LDB];
+  using G = TileGemm<T, 2>;
+  __shared__ typename G::Smem sm;
   __shared__ float red_s[kGemmThreads / 32];
 
   const int tiles = g.tiles_m * g.tiles_n;
@@ -898,72 +874,32 @@ streamed_gemm_kernel(const __grid_constant__ GemmArgs g) {
   const TA* A = static_cast<const TA*>(g.a) + zh * g.a_hi + zl * g.a_lo;
   const T* B = static_cast<const T*>(g.b) + zh * g.b_hi + zl * g.b_lo;
   const float sc = g.scale ? g.scale[zh] : 1.f;
-  const int warp = threadIdx.x >> 5, lane = lane_id();
-  const int gq = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
 
-  T ra[kLoads], rb[kLoads];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const int e = threadIdx.x + r * kGemmThreads;
-      // neighbouring threads on neighbouring addresses: along k for A, or
-      // along m where A is read transposed; along n for B
-      const int mi = kAT ? e % kTileM : e / kTileK, ki = kAT ? e / kTileM : e % kTileK;
-      const int m = m0 + mi, k = k0 + ki;
-      float v = 0.f;
-      if (m < g.m && k < g.k)
-        v = to_float(A[kAT ? (long long)k * g.lda + m : (long long)m * g.lda + k]);
-      ra[r] = from_float<T>(g.scale ? __fmul_rn(v, sc) : v);
-      const int kb = e / kTileN, n = n0 + e % kTileN;
-      rb[r] = k0 + kb < g.k && n < g.n ? B[(long long)(k0 + kb) * g.ldb + n] : from_float<T>(0.f);
-    }
+  auto fetch_a = [&](int s, int mi, int ki) {
+    const int m = m0 + mi, k = s * G::kK + ki;
+    float v = 0.f;
+    if (m < g.m && k < g.k)
+      v = to_float(A[kAT ? (long long)k * g.lda + m : (long long)m * g.lda + k]);
+    return from_float<T>(g.scale ? __fmul_rn(v, sc) : v);
   };
-  auto stage = [&]() {
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const int e = threadIdx.x + r * kGemmThreads;
-      const int mi = kAT ? e % kTileM : e / kTileK, ki = kAT ? e / kTileM : e % kTileK;
-      a_s[mi * LDA + ki] = ra[r];
-      b_s[(e / kTileN) * LDB + e % kTileN] = rb[r];
-    }
+  auto put_a = [](T v, int) { return v; };
+  auto fetch_b = [&](int s, int kb, int nb) {
+    const int k = s * G::kK + kb, n = n0 + nb;
+    return k < g.k && n < g.n ? B[(long long)k * g.ldb + n] : from_float<T>(0.f);
   };
-
-  float acc[2][4][4] = {};
-  const int nk = (g.k + kTileK - 1) / kTileK;
-  load(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    stage();
-    __syncthreads();
-    if (kt + 1 < nk) load((kt + 1) * kTileK);
-#pragma unroll
-    for (int ks = 0; ks < kTileK; ks += KS) {
-      typename Op::AFrag af[2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        Op::load_a(af[mi], [&](int r, int c) { return a_s[(wm + mi * 16 + r) * LDA + ks + c]; }, gq,
-                   tq);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        typename Op::BFrag bf;
-        Op::load_b(bf, [&](int r, int c) { return b_s[(ks + r) * LDB + wn + ni * 8 + c]; }, gq, tq);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) Op::mma(acc[mi][ni], af[mi], bf);
-      }
-    }
-    __syncthreads();
-  }
+  float acc[G::kMI][4][4] = {};
+  G::template run<kAT, false, T>(sm, (g.k + G::kK - 1) / G::kK, fetch_a, put_a, fetch_b, acc, acc,
+                                 [](int) {});
 
   float* C = g.c + zh * g.c_hi + zl * g.c_lo;
   float part = 0.f;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < G::kMI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int row = m0 + wm + mi * 16 + gq + 8 * (c >> 1);
-        const int col = n0 + wn + ni * 8 + 2 * tq + (c & 1);
+        const int row = m0 + G::row(mi, c), col = n0 + G::col(ni, c);
         if (row < g.m && col < g.n) {
           C[(long long)row * g.ldc + col] = acc[mi][ni][c];
           part += fabsf(acc[mi][ni][c]);
@@ -972,7 +908,7 @@ streamed_gemm_kernel(const __grid_constant__ GemmArgs g) {
   if (g.part) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) red_s[warp] = part;
+    if (lane_id() == 0) red_s[threadIdx.x >> 5] = part;
     __syncthreads();
     if (threadIdx.x == 0) {
       float s = 0.f;

@@ -76,8 +76,61 @@
 //     same in every mode.
 //
 // The wrappers (ops/cuda_mps.py, ops/cuda_epilogue.py) make that layout
-// through one helper (cuda_mps.tc_operands); nothing else needs D to be
+// through one helper (cuda_mps.chain_launch); nothing else needs D to be
 // aligned.
+//
+// Streamed path (launch_streamed, exported as cn_mps_chain_streamed), for
+// every shape the tensor-core kernel has no plan for: D > 128.  It exists
+// because the Pallas kernels size only their VMEM tiles and take such bonds
+// (DMRG ground states at bond 256 are served through #1), and because the
+// one-CTA layout cannot hold them: at D 256 one fp32 block of a site is
+// 256 KB, more than the 232 KB of shared memory a CTA may have.  So the
+// carry goes to device memory between sites.
+//
+// Bound (H100 SXM, fp32 cores, N = 1000, d = 2, D = 256, B = 4096): per site
+// a (B x D) x (D x d*D) GEMM, 2*B*N*d*D^2 = 1.07e12 FLOPs, as 3xTF32 at
+// 495 TFLOP/s: 6.51 ms, above the 0.56 GB of cores and x (0.17 ms).  The
+// carry's own traffic (2 * B * D * 4 bytes a site each way, 8 GB a call) is
+// not in the bound, since an on-chip design need not move it: it costs
+// 2.4 ms at HBM rate, behind the GEMMs.
+//
+// Design: per site one launch of mps_streamed_site_kernel over 64-row batch
+// tiles x 64-column tiles of the D output columns, on the tile GEMM that
+// mpo_env.cu's streamed path also runs (TileGemm, tc_common.cuh; here 256
+// threads, 8 warps of 16 x 32 on mma.sync: 3xTF32 for fp32 cores, one bf16
+// pass for bf16, fp32 accumulation, K in steps of 32 staged through
+// registers, the next step's global loads in flight while this one's MMAs
+// run):
+//   * prologue: the previous site's rescale of the tile's 64 rows, each row's
+//     column-tile sums added in tile order (no atomics, so every CTA of the
+//     rows gets the same value whatever the timing), the mean rounded as
+//     the tensor-core kernel rounds it, guard against step_thr; the first
+//     column tile adds logf(safe) to the running log in log_out;
+//   * for k = 0..d-1, u_k = A . A_n[k][:, cols], the A operand the previous
+//     carry divided by its row's safe (in_carry, then rounded to the core
+//     type, as the tensor-core kernel's v_s), at site 0 left; a step's A
+//     values are all loaded before any is divided, as they are staged (a
+//     division waiting on its own load holds the next loads back); the
+//     cores are read in place (N, d, D, D), no padded copy;
+//   * v' = sum_k x[b, n, k] u_k in registers in the tensor-core kernel's
+//     multiply-then-add order and bf16 rounding (kCarryBf16);
+//   * v' is written unscaled to one of two carry buffers (the other column
+//     tiles of the same rows still read the previous one), and the tile's
+//     per-row sum |v'| (quad shuffles, then its two warps in order) to a
+//     fixed slot of one of two slot sets.
+// After the last site, mps_streamed_finish_kernel (one warp a row) applies
+// the last rescale, then closes (kClose: fmaf against right, a shuffle
+// tree, the |amp| guard) or writes the carry in its type, and the log.
+// Ragged B and D are masked (zero loads, no stores).  The wrapper allocates
+// the workspace (cn_mps_streamed_workspace bytes: two carries, two slot
+// sets); the kernels allocate nothing.  The A operand is re-read from L2
+// for every k, and nothing uses the TMA, wgmma or a persistent CTA yet:
+// PERF.md (section 6, rows #1 and #2) has its times.
+//
+// One C function (path_for, exported as cn_mps_path) picks the path before
+// the launch: the tensor-core path wherever one of its plans fits (every
+// 1 <= D <= 128), the streamed path for every other shape with d, D >= 1.
+// A failed launch is never retried on the other path.
 
 #include "tc_common.cuh"
 
@@ -421,6 +474,7 @@ struct Args {
   const float *x, *left, *right;
   void* out;
   float* log_out;
+  void* work;  // the streamed path's workspace (streamed_layout)
   int n_sites, phys, bond, batch;
   float step_thr, close_thr;
 };
@@ -449,7 +503,7 @@ int launch(const Args& a, cudaStream_t stream) {
 int padded_bond(int bond) { return bond <= 32 ? 32 : bond <= 64 ? 64 : 128; }
 
 template <typename T, int kOut>
-int dispatch(const Args& a, cudaStream_t stream) {
+int launch_tensor_core(const Args& a, cudaStream_t stream) {
   switch (padded_bond(a.bond)) {
     case 32: return launch<T, 32, kOut>(a, stream);
     case 64: return launch<T, 64, kOut>(a, stream);
@@ -458,55 +512,365 @@ int dispatch(const Args& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// Dynamic shared memory of the tensor-core path's CTA, or -1 where it has
+// no plan (D > 128, or not even one ring slot fits)
+int tc_smem(int cores_bf16, int phys, int bond) {
+  if (bond < 1 || bond > 128 || phys < 1) return -1;
+  const int dp = padded_bond(bond);
+  const Plan p = cores_bf16 ? plan_for<__nv_bfloat16>(phys, dp) : plan_for<float>(phys, dp);
+  if (p.blocks == 0) return -1;
+  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, dp, p.blocks, p.nx).total
+                    : make_layout<float>(phys, dp, p.blocks, p.nx).total;
+}
+
+// ------------------------------------------------------------ streamed path
+
+// 8 warps over a 64 x 64 tile, 4 along its rows (one m16 tile each) and 2
+// along its columns (32 each): twice the warps of a 2 x 2 layout of
+// 32 x 32, to hide more of each K step's load latency
+template <typename T>
+using SGemm = TileGemm<T, 4>;
+constexpr int kSTileM = SGemm<float>::kM, kSTileN = SGemm<float>::kN;
+constexpr int kSThreads = SGemm<float>::kThreads;
+constexpr int kFinishRows = 4;  // rows (one a warp) of a finishing CTA
+
+__host__ __device__ constexpr long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// The workspace: two carries (B, D) fp32 and two sets of column-tile sums
+// (B, ceil(D / 64)) fp32, each 256-byte aligned; site n writes set n & 1
+// while the other column tiles of its rows still read set (n - 1) & 1
+struct StreamedLayout {
+  long long carry[2], part[2], total;  // byte offsets, total bytes
+  int tiles_n;
+};
+
+StreamedLayout streamed_layout(int bond, int batch) {
+  auto up = [](long long x) { return cdiv(x, 256) * 256; };
+  StreamedLayout L;
+  L.tiles_n = (int)cdiv(bond, kSTileN);
+  const long long carry = up((long long)batch * bond * 4);
+  const long long part = up((long long)batch * L.tiles_n * 4);
+  L.carry[0] = 0;
+  L.carry[1] = carry;
+  L.part[0] = 2 * carry;
+  L.part[1] = 2 * carry + part;
+  L.total = 2 * carry + 2 * part;
+  return L;
+}
+
+// The guarded mean of row b from its column-tile sums, added in tile order
+// (no atomics: the same value in every CTA that reads it)
 template <int kOut>
-int dispatch_type(const Args& a, int cores_bf16, void* stream) {
+__device__ __forceinline__ float row_safe(const float* part, int tiles_n, long long b, int bond,
+                                          float step_thr) {
+  const float* p = part + b * tiles_n;
+  float total = p[0];
+  for (int i = 1; i < tiles_n; ++i) total += p[i];
+  const float mean = in_carry<kOut>(__fdiv_rn(in_carry<kOut>(total), (float)bond));
+  return mean > step_thr ? mean : 1.f;
+}
+
+struct SiteArgs {
+  const void* cores;  // (N, d, D, D) of T, read in place
+  const float* x;     // (B, N, d)
+  const float* left;  // (D,), the A operand at site 0
+  const float* prev;  // the carry after site n - 1 (unscaled), or null at site 0
+  const float* part_prev;
+  float* next;  // the carry after site n (unscaled)
+  float* part_next;
+  float* log_out;  // the running log, one slot a row
+  int n_sites, phys, bond, batch, tiles_n;
+  float step_thr;
+};
+
+// Site n for a 64-row x 64-column tile of the carry: per physical index k,
+// u_k = A . A_n[k][:, cols] on mma.sync, A the previous carry divided by
+// its row's safe (at site 0, left) and rounded to T as it is staged; then
+// v' = sum_k x[b, n, k] u_k in registers, written unscaled with the tile's
+// per-row sum |v'|.  Rows and columns past the batch and the bond load as
+// zero and store nothing.
+template <typename T, int kOut>
+__global__ void __launch_bounds__(kSThreads)
+mps_streamed_site_kernel(const __grid_constant__ SiteArgs a, int n) {
+  using G = SGemm<T>;
+  constexpr int kMI = G::kMI;
+  __shared__ typename G::Smem sm;
+  __shared__ float safe_s[kSTileM];
+  __shared__ float red_s[kSTileM * 2];
+
+  const int m0 = blockIdx.x * kSTileM, n0 = blockIdx.y * kSTileN;
+  const int bond = a.bond, batch = a.batch, phys = a.phys;
+  const int warp = threadIdx.x >> 5, tq = lane_id() & 3;
+
+  // the previous site's rescale of this tile's rows; the first column tile
+  // adds it to the log
+  if (threadIdx.x < kSTileM) {
+    const int b = m0 + threadIdx.x;
+    float safe = 1.f;
+    if (n > 0 && b < batch) {
+      safe = row_safe<kOut>(a.part_prev, a.tiles_n, b, bond, a.step_thr);
+      if (blockIdx.y == 0) a.log_out[b] = (n > 1 ? a.log_out[b] : 0.f) + logf(safe);
+    }
+    safe_s[threadIdx.x] = safe;
+  }
+  __syncthreads();
+
+  // steps are (k, K step) pairs, k-major.  A is loaded raw and divided as
+  // it is staged: a division that waits on its own load holds the next
+  // loads back
+  const T* core = static_cast<const T*>(a.cores) + (size_t)n * phys * bond * bond;
+  const int nkt = (int)cdiv(bond, G::kK);
+  auto fetch_a = [&](int s, int mi, int ki) {
+    const int kk = (s % nkt) * G::kK + ki, b = m0 + mi;
+    return b < batch && kk < bond ? (n ? a.prev[(size_t)b * bond + kk] : a.left[kk]) : 0.f;
+  };
+  auto put_a = [&](float v, int mi) {
+    return from_float<T>(n ? in_carry<kOut>(__fdiv_rn(v, safe_s[mi])) : v);
+  };
+  auto fetch_b = [&](int s, int kb, int j) {
+    const int k = s / nkt, kr = (s - k * nkt) * G::kK + kb, jc = n0 + j;
+    return kr < bond && jc < bond ? core[((size_t)k * bond + kr) * bond + jc] : from_float<T>(0.f);
+  };
+
+  // rows of this thread's C positions: (mi, h) -> G::row(mi, 2h)
+  long long xrow[kMI][2];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = min(m0 + G::row(mi, 2 * h), batch - 1);
+      xrow[mi][h] = ((long long)b * a.n_sites + n) * phys;
+    }
+
+  // once u_k is complete, weight it by x[b, n, k] into v'
+  float big[kMI][4][4] = {}, small[kMI][4][4] = {}, vn[kMI][4][4];
+  auto weight = [&](int s) {
+    if ((s + 1) % nkt) return;
+    const int k = s / nkt;
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      const float xv[2] = {a.x[xrow[mi][0] + k], a.x[xrow[mi][1] + k]};
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float u = big[mi][ni][c];
+          if (sizeof(T) == 4) u += small[mi][ni][c];
+          big[mi][ni][c] = small[mi][ni][c] = 0.f;
+          const float p =
+              in_carry<kOut>(__fmul_rn(in_carry<kOut>(u), in_carry<kOut>(xv[c >> 1])));
+          vn[mi][ni][c] = k == 0 ? p : in_carry<kOut>(__fadd_rn(vn[mi][ni][c], p));
+        }
+    }
+  };
+  G::template run<false, sizeof(T) == 4, float>(sm, phys * nkt, fetch_a, put_a, fetch_b, big,
+                                                small, weight);
+
+  // v' unscaled, and the tile's per-row sum |v'|: over this thread's
+  // columns, the 4 lanes of a quad, then the two warps of the rows in order
+  float part[kMI][2] = {};
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = m0 + G::row(mi, c), col = n0 + G::col(ni, c);
+        if (row < batch && col < bond) {
+          a.next[(size_t)row * bond + col] = vn[mi][ni][c];
+          part[mi][c >> 1] += fabsf(vn[mi][ni][c]);
+        }
+      }
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p = part[mi][h];
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      if (tq == 0) red_s[G::row(mi, 2 * h) * 2 + (warp & 1)] = p;
+    }
+  __syncthreads();
+  if (threadIdx.x < kSTileM && m0 + (int)threadIdx.x < batch)
+    a.part_next[(size_t)(m0 + threadIdx.x) * a.tiles_n + blockIdx.y] =
+        red_s[2 * threadIdx.x] + red_s[2 * threadIdx.x + 1];
+}
+
+// After the last site, one warp a row: the last rescale, then kClose's
+// close against `right` (fmaf, lane-strided, a shuffle tree) and |amp|
+// rescale, or the carry in its type.  v_ld 0 and part null: no site ran,
+// the carry is `v` (left) unscaled.
+template <int kOut>
+__global__ void __launch_bounds__(32 * kFinishRows)
+mps_streamed_finish_kernel(const float* __restrict__ v, int v_ld, const float* __restrict__ part,
+                           const float* __restrict__ right, void* __restrict__ out,
+                           float* __restrict__ log_out, int n_sites, int bond, int batch,
+                           int tiles_n, float step_thr, float close_thr) {
+  const long long b = (long long)blockIdx.x * kFinishRows + (threadIdx.x >> 5);
+  const int lane = lane_id();
+  if (b >= batch) return;
+  const float safe = part ? row_safe<kOut>(part, tiles_n, b, bond, step_thr) : 1.f;
+  const float* vb = v + b * v_ld;
+  if constexpr (kOut == kClose) {
+    float s = 0.f;
+    for (int j = lane; j < bond; j += 32) s = fmaf(__fdiv_rn(vb[j], safe), right[j], s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      const float lg = (n_sites > 1 ? log_out[b] : 0.f) + (part ? logf(safe) : 0.f);
+      const float mag = fabsf(s);
+      const float sf = mag > close_thr ? mag : 1.f;
+      static_cast<float*>(out)[b] = __fdiv_rn(s, sf);
+      log_out[b] = lg + logf(sf);
+    }
+  } else {
+    for (int j = lane; j < bond; j += 32) {
+      const float c = in_carry<kOut>(__fdiv_rn(vb[j], safe));
+      if constexpr (kOut == kCarryBf16)
+        static_cast<__nv_bfloat16*>(out)[b * bond + j] = __float2bfloat16_rn(c);
+      else
+        static_cast<float*>(out)[b * bond + j] = c;
+    }
+    if (lane == 0) log_out[b] = (n_sites > 1 ? log_out[b] : 0.f) + (part ? logf(safe) : 0.f);
+  }
+}
+
+// Every site, one launch each, then the finishing kernel; the carries and
+// tile sums in `work` (streamed_layout's bytes), the running log in log_out
+template <typename T, int kOut>
+int launch_streamed(const Args& a, cudaStream_t stream) {
+  if (a.n_sites < 0 || a.phys < 1 || a.bond < 1 || a.batch < 0 || !a.work)
+    return (int)cudaErrorInvalidValue;
+  if (a.batch == 0) return 0;
+  const StreamedLayout L = streamed_layout(a.bond, a.batch);
+  if (L.tiles_n > 65535 || cdiv(a.batch, kSTileM) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  char* ws = static_cast<char*>(a.work);
+  float* carry[2] = {reinterpret_cast<float*>(ws + L.carry[0]),
+                     reinterpret_cast<float*>(ws + L.carry[1])};
+  float* part[2] = {reinterpret_cast<float*>(ws + L.part[0]),
+                    reinterpret_cast<float*>(ws + L.part[1])};
+  const dim3 grid((unsigned)cdiv(a.batch, kSTileM), (unsigned)L.tiles_n);
+  SiteArgs s = {a.cores, a.x, a.left, nullptr, nullptr, nullptr, nullptr, a.log_out,
+                a.n_sites, a.phys, a.bond, a.batch, L.tiles_n, a.step_thr};
+  for (int n = 0; n < a.n_sites; ++n) {
+    s.prev = n ? carry[(n - 1) & 1] : nullptr;
+    s.part_prev = n ? part[(n - 1) & 1] : nullptr;
+    s.next = carry[n & 1];
+    s.part_next = part[n & 1];
+    mps_streamed_site_kernel<T, kOut><<<grid, kSThreads, 0, stream>>>(s, n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int last = a.n_sites - 1;
+  mps_streamed_finish_kernel<kOut>
+      <<<(unsigned)cdiv(a.batch, kFinishRows), 32 * kFinishRows, 0, stream>>>(
+          a.n_sites ? carry[last & 1] : a.left, a.n_sites ? a.bond : 0,
+          a.n_sites ? part[last & 1] : nullptr, a.right, a.out, a.log_out, a.n_sites, a.bond,
+          a.batch, L.tiles_n, a.step_thr, a.close_thr);
+  return (int)cudaGetLastError();
+}
+
+// The path for a shape: 1 the tensor-core kernel wherever one of its plans
+// fits, 2 the streamed kernels for every other shape with d, D >= 1, 0 for
+// a zero dimension
+int path_for(int cores_bf16, int phys, int bond) {
+  if (phys < 1 || bond < 1) return 0;
+  return tc_smem(cores_bf16, phys, bond) >= 0 ? 1 : 2;
+}
+
+template <int kOut>
+int launch_path(const Args& a, int cores_bf16, int path, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return cores_bf16 ? dispatch<__nv_bfloat16, kOut>(a, s) : dispatch<float, kOut>(a, s);
+  if (path == 1)
+    return cores_bf16 ? launch_tensor_core<__nv_bfloat16, kOut>(a, s)
+                      : launch_tensor_core<float, kOut>(a, s);
+  if (path == 2)
+    return cores_bf16 ? launch_streamed<__nv_bfloat16, kOut>(a, s)
+                      : launch_streamed<float, kOut>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_mode(const Args& a, int cores_bf16, int mode, int path, void* stream) {
+  switch (mode) {
+    case kClose: return launch_path<kClose>(a, cores_bf16, path, stream);
+    case kCarryF32: return launch_path<kCarryF32>(a, cores_bf16, path, stream);
+    case kCarryBf16: return launch_path<kCarryBf16>(a, cores_bf16, path, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Kernel #1.  cores laid out as (N, d, DP, LD), fp32 or bf16, zero beyond
-// (d, D, D), with DP = cn_mps_core_rows(D) and LD = cn_mps_core_ld(D); x
-// (B, N, d) fp32; left/right (D,) fp32.  Writes amp and log (B,) fp32.
+// Kernel #1, on the path cn_mps_path picks.  x (B, N, d) fp32; left/right
+// (D,) fp32; cores fp32 or bf16, on the tensor-core path laid out as
+// (N, d, DP, LD), zero beyond (d, D, D), with DP = cn_mps_core_rows(D) and
+// LD = cn_mps_core_ld(D), on the streamed path (N, d, D, D) as they are,
+// with work of cn_mps_streamed_workspace bytes (unused on the tensor-core
+// path).  Writes amp and log (B,) fp32.
 int cn_mps_evaluate(const void* cores, int cores_bf16, const float* x, const float* left,
-                    const float* right, float* amp, float* log_out, int n_sites, int phys,
-                    int bond, int batch, float step_thr, float close_thr, void* stream) {
-  const Args a = {cores, x, left, right, amp, log_out, n_sites, phys, bond, batch, step_thr,
-                  close_thr};
-  return dispatch_type<kClose>(a, cores_bf16, stream);
+                    const float* right, float* amp, float* log_out, void* work, int n_sites,
+                    int phys, int bond, int batch, float step_thr, float close_thr,
+                    void* stream) {
+  const Args a = {cores, x, left, right, amp, log_out, work, n_sites, phys, bond, batch,
+                  step_thr, close_thr};
+  return launch_mode(a, cores_bf16, kClose, path_for(cores_bf16, phys, bond), stream);
 }
 
-// Kernel #2.  cores, x as for cn_mps_evaluate; left (D,) fp32, already cast
-// to the core type and the carry type.  Writes the carry v_out (B, D) in fp32
-// (carry_bf16 = 0) or bf16 (carry_bf16 = 1) and log (B,) fp32.
+// Kernel #2, on the path cn_mps_path picks.  cores, x and work as for
+// cn_mps_evaluate; left (D,) fp32, already cast to the core type and the
+// carry type.  Writes the carry v_out (B, D) in fp32 (carry_bf16 = 0) or
+// bf16 (carry_bf16 = 1) and log (B,) fp32.
 int cn_mps_epilogue(const void* cores, int cores_bf16, const float* x, const float* left,
-                    void* v_out, int carry_bf16, float* log_out, int n_sites, int phys, int bond,
-                    int batch, float step_thr, void* stream) {
-  const Args a = {cores, x, left, nullptr, v_out, log_out, n_sites, phys, bond, batch, step_thr,
-                  0.f};
-  return carry_bf16 ? dispatch_type<kCarryBf16>(a, cores_bf16, stream)
-                    : dispatch_type<kCarryF32>(a, cores_bf16, stream);
+                    void* v_out, int carry_bf16, float* log_out, void* work, int n_sites,
+                    int phys, int bond, int batch, float step_thr, void* stream) {
+  const Args a = {cores, x, left, nullptr, v_out, log_out, work, n_sites, phys, bond, batch,
+                  step_thr, 0.f};
+  return launch_mode(a, cores_bf16, carry_bf16 ? kCarryBf16 : kCarryF32,
+                     path_for(cores_bf16, phys, bond), stream);
 }
 
-// DP, the rows of each (DP, LD) block of the core layout for bond D.
+// The streamed path at any d, D >= 1, also where cn_mps_path picks the
+// tensor-core path: a yardstick to time the two side by side
+// (ops/cuda_mps.py mps_chain_streamed); the entries above call it only for
+// the shapes cn_mps_path assigns to it.  Operands as for the streamed path
+// of cn_mps_evaluate (mode 0, out = amp) or cn_mps_epilogue (mode 1 fp32
+// carry, 2 bf16 carry, out = v_out; right is not read).
+int cn_mps_chain_streamed(const void* cores, int cores_bf16, const float* x, const float* left,
+                          const float* right, void* out, int mode, float* log_out, void* work,
+                          int n_sites, int phys, int bond, int batch, float step_thr,
+                          float close_thr, void* stream) {
+  const Args a = {cores, x, left, right, out, log_out, work, n_sites, phys, bond, batch,
+                  step_thr, close_thr};
+  return phys < 1 || bond < 1 ? (int)cudaErrorInvalidValue
+                              : launch_mode(a, cores_bf16, mode, 2, stream);
+}
+
+// The path cn_mps_evaluate and cn_mps_epilogue take for these operands: 1
+// the tensor-core kernel, 2 the streamed kernels, 0 for d or D < 1.
+int cn_mps_path(int cores_bf16, int phys, int bond) { return path_for(cores_bf16, phys, bond); }
+
+// Bytes of device workspace the streamed path needs for B rows at bond D.
+int cn_mps_streamed_workspace(int bond, int batch, long long* bytes) {
+  if (bond < 1 || batch < 0) return (int)cudaErrorInvalidValue;
+  *bytes = streamed_layout(bond, batch).total;
+  return 0;
+}
+
+// DP, the rows of each (DP, LD) block of the tensor-core path's core layout
+// for bond D.
 int cn_mps_core_rows(int bond) { return padded_bond(bond); }
 
-// LD, the row length (elements) of each block of the core layout for bond D.
+// LD, the row length (elements) of each block of that layout for bond D.
 int cn_mps_core_ld(int bond) { return core_ld(padded_bond(bond)); }
 
-// Dynamic shared memory of one CTA for these operands (bytes), the same for
-// both entries, or -1 when the bond exceeds 128 or not even one ring slot
-// fits the per-block limit.
+// Dynamic shared memory of the tensor-core path's CTA for these operands
+// (bytes), the same for both entries, or -1 where that path has no plan:
+// D > 128, or not even one ring slot fits the per-block limit.
 int cn_mps_evaluate_smem(int cores_bf16, int phys, int bond) {
-  if (bond > 128) return -1;
-  const int dp = padded_bond(bond);
-  const Plan p = cores_bf16 ? plan_for<__nv_bfloat16>(phys, dp) : plan_for<float>(phys, dp);
-  if (p.blocks == 0) return -1;
-  return cores_bf16 ? make_layout<__nv_bfloat16>(phys, dp, p.blocks, p.nx).total
-                    : make_layout<float>(phys, dp, p.blocks, p.nx).total;
+  return tc_smem(cores_bf16, phys, bond);
 }
 
 }  // extern "C"

@@ -49,6 +49,20 @@ __device__ __forceinline__ float as_operand<__nv_bfloat16>(float v) {
   return round_bf16(v);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
@@ -171,6 +185,105 @@ __device__ __forceinline__ int swz(int row, int col, int ld) {
   const int sel = sizeof(T) == 4 ? row : row >> 1;
   return row * ld + (col ^ ((sel & 3) << 3));
 }
+
+// ------------------------------------------------------------ tile GEMM
+
+// The tile GEMM of the streamed paths (mpo_env.cu streamed_gemm_kernel,
+// mps_chain_tc.cu mps_streamed_site_kernel): one CTA computes a 64 x 64
+// tile of C = A B on mma.sync with fp32 accumulation.  K runs in steps of
+// 32, staged through registers into shared rows padded for the fragment
+// patterns (A's 4 words mod 32 serve the tf32 A pattern, B's 8 mod 32 the B
+// pattern), the next step's global loads in flight while this step's MMAs
+// run.  kWarpsM x 2 warps, each (16 kMI) x 32 of the tile.  What A and B
+// are, and how A is scaled and cast, is the caller's: its functors fetch
+// each element at load time and make A's staged value at stage time.
+template <typename T, int kWarpsM>
+struct TileGemm {
+  using Op = Tc<T>;
+  static constexpr int kM = 64, kN = 64, kK = 32;
+  static constexpr int kThreads = 2 * kWarpsM * 32;
+  static constexpr int kMI = kM / (16 * kWarpsM);    // m16 tiles a warp
+  static constexpr int kLoads = kM * kK / kThreads;  // = kK * kN / kThreads
+  static constexpr int kLda = kK + (sizeof(T) == 4 ? 4 : 8), kLdb = kN + 8;
+  static constexpr int kSmemBytes = (kM * kLda + kK * kLdb) * (int)sizeof(T);
+
+  struct Smem {
+    __align__(16) T a[kM * kLda];
+    __align__(16) T b[kK * kLdb];
+  };
+  using Acc = float[kMI][4][4];
+
+  // Tile-local row and column of this thread's C element [mi][ni][c]
+  __device__ __forceinline__ static int row(int mi, int c) {
+    return (threadIdx.x >> 6) * 16 * kMI + mi * 16 + (lane_id() >> 2) + 8 * (c >> 1);
+  }
+  __device__ __forceinline__ static int col(int ni, int c) {
+    return ((threadIdx.x >> 5) & 1) * 32 + ni * 8 + 2 * (lane_id() & 3) + (c & 1);
+  }
+
+  // `steps` K steps.  fetch_a(s, m, k) returns A's element at tile-local
+  // (m, k) of step s as an RA (zero outside A), put_a(v, m) the T staged for
+  // it; fetch_b(s, k, n) returns B's (zero outside B).  kAT: neighbouring
+  // threads load along m (A read transposed), else along k; B's along n.
+  // kTwoAcc: hi*hi into big and the cross terms into small (Tc<float>::mma),
+  // else every product into big.  after(s) runs once step s's MMAs are done
+  // and every thread has passed the barrier behind them.
+  template <bool kAT, bool kTwoAcc, typename RA, class FA, class PA, class FB, class After>
+  __device__ __forceinline__ static void run(Smem& sm, int steps, FA fetch_a, PA put_a,
+                                             FB fetch_b, Acc& big, Acc& small, After after) {
+    constexpr int KS = Op::kK;
+    const int lane = lane_id(), gq = lane >> 2, tq = lane & 3;
+    const int wm = (threadIdx.x >> 6) * 16 * kMI, wn = ((threadIdx.x >> 5) & 1) * 32;
+    RA ra[kLoads];
+    T rb[kLoads];
+    auto load = [&](int s) {
+#pragma unroll
+      for (int r = 0; r < kLoads; ++r) {
+        const int e = threadIdx.x + r * kThreads;
+        ra[r] = fetch_a(s, kAT ? e % kM : e / kK, kAT ? e / kM : e % kK);
+        rb[r] = fetch_b(s, e / kN, e % kN);
+      }
+    };
+    auto stage = [&]() {
+#pragma unroll
+      for (int r = 0; r < kLoads; ++r) {
+        const int e = threadIdx.x + r * kThreads;
+        const int m = kAT ? e % kM : e / kK, k = kAT ? e / kM : e % kK;
+        sm.a[m * kLda + k] = put_a(ra[r], m);
+        sm.b[(e / kN) * kLdb + e % kN] = rb[r];
+      }
+    };
+    load(0);
+    for (int s = 0; s < steps; ++s) {
+      stage();
+      __syncthreads();
+      if (s + 1 < steps) load(s + 1);
+#pragma unroll
+      for (int ks = 0; ks < kK; ks += KS) {
+        typename Op::AFrag af[kMI];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi)
+          Op::load_a(af[mi], [&](int r, int c) { return sm.a[(wm + mi * 16 + r) * kLda + ks + c]; },
+                     gq, tq);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          typename Op::BFrag bf;
+          Op::load_b(bf, [&](int r, int c) { return sm.b[(ks + r) * kLdb + wn + ni * 8 + c]; }, gq,
+                     tq);
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi) {
+            if constexpr (kTwoAcc)
+              Op::mma(big[mi][ni], small[mi][ni], af[mi], bf);
+            else
+              Op::mma(big[mi][ni], af[mi], bf);
+          }
+        }
+      }
+      __syncthreads();
+      after(s);
+    }
+  }
+};
 
 // ------------------------------------------------------------ cp.async
 

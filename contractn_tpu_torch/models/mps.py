@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.cuda_mps import MAX_BOND, cuda_mps_evaluate
+from ..ops.cuda_mps import cuda_mps_evaluate
 from ..ops.scan import (
     _stab_step,
     mps_evaluate,
@@ -133,8 +133,12 @@ class MPS:
 
     def _kernel_eligible(self, x, stabilize_every, remat_segments,
                          sites_per_step):
-        """Whether the chain kernel takes this call's device, dtypes, options
-        and bond (whether a gradient is needed is :meth:`_path`'s question)."""
+        """Whether the chain kernel takes this call's device, dtypes and
+        options (whether a gradient is needed is :meth:`_path`'s question).
+        Every bond and batch qualifies: above bond 128 the kernel's streamed
+        path ran faster than ``mps_evaluate_auto`` at every shape timed
+        (bond 256 with d 2 at 16-4096 samples, d 16 at 16 and 4096; PERF.md,
+        section 6)."""
         return (
             self.cores.is_cuda
             and self.cores.dtype in (torch.float32, torch.bfloat16)
@@ -142,7 +146,6 @@ class MPS:
             and stabilize_every == 1
             and not remat_segments
             and sites_per_step == 1
-            and self.bond_dim <= MAX_BOND
         )
 
     def _path(self, x, kernel, stabilize_every, remat_segments,
@@ -182,15 +185,18 @@ class MPS:
             kernel: ``"auto"`` — on a CUDA device the hand-written chain
                 kernel when it applies (real float32/bfloat16 cores,
                 ``stabilize_every == 1``, no ``remat_segments``,
-                ``sites_per_step == 1``, ``D <= 128``) and autograd will not
+                ``sites_per_step == 1``; any bond) and autograd will not
                 record through it (grad mode off, or no operand requires
                 grad), else the differentiable loops; ``"scan"`` — the plain
                 per-site torch loop (needed for ``remat_segments``);
                 ``"cuda"`` — the chain kernel (its plain version for CPU
-                tensors), the counterpart of the JAX package's ``"pallas"``;
-                it has no backward and raises ``TNError`` where autograd
-                would record through it.  The kernel keeps an fp32 carry
-                and returns fp32 amplitudes for bfloat16 cores.
+                tensors), the counterpart of the JAX package's ``"pallas"``,
+                at every bond: up to 128 on its on-chip tensor-core path,
+                above on its streamed path (the carry in device memory
+                between sites); it has no backward and raises ``TNError``
+                where autograd would record through it.  The kernel keeps
+                an fp32 carry and returns fp32 amplitudes for bfloat16
+                cores.
             remat_segments: checkpointed-segment count for sqrt(N)
                 backward-pass memory on long chains (forces ``"scan"``).
             sites_per_step: fuse this many sites per step

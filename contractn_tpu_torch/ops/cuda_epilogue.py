@@ -2,12 +2,14 @@
 
 Replaces the Pallas TPU kernel ``contractn_tpu/ops/pallas_epilogue.py``
 (``mps_evaluate_epilogue`` -> ``_kernel``).  The CUDA source is
-``csrc/mps_chain_tc.cu`` (entry ``cn_mps_epilogue``): the tensor-core chain
-kernel of :mod:`.cuda_mps` in its carry modes, on the same core layout
-(:func:`.cuda_mps.tc_operands`).  One CTA per 32-row batch tile walks every
-site with the carry on chip, each site's GEMM on ``mma.sync`` and the
-coming cores fetched by the TMA.  What differs, as in the Pallas kernel it
-replaces:
+``csrc/mps_chain_tc.cu`` (entry ``cn_mps_epilogue``): the chain kernel of
+:mod:`.cuda_mps` in its carry modes, on the same two paths, picked by the
+library from the shape (:func:`.cuda_mps.chain_path`): up to bond 128 one
+CTA per 32-row batch tile walks every site with the carry on chip, each
+site's GEMM on ``mma.sync`` and the coming cores fetched by the TMA; above
+it the carry lives in device memory between sites, one launch a site
+(:func:`.cuda_mps.chain_launch` lays out the operands of either).  What
+differs from #1, as in the Pallas kernel it replaces:
 
 * the carry is ``acc_dtype`` (float32 or bfloat16) and starts from
   ``left`` cast to the core dtype; the GEMM accumulates in fp32 and its
@@ -18,18 +20,17 @@ replaces:
   amplitude is cast to the core dtype.
 
 CUDA tensors go through the kernel (counted in
-``epilogue_chain.launches``) or raise; CPU tensors run
-:func:`epilogue_chain_plain`.  Neither entry point takes operands autograd
-would record through: the kernel has no backward.  The Pallas wrapper's
-``sites_per_step`` and ``interpret`` are TPU knobs and are not taken;
-``acc_dtype`` is semantic and stays.
+``epilogue_chain.launches`` and, by path, ``epilogue_chain.launches_by_path``)
+or raise; CPU tensors run :func:`epilogue_chain_plain`.  Neither entry point
+takes operands autograd would record through: the kernel has no backward.
+The Pallas wrapper's ``sites_per_step`` and ``interpret`` are TPU knobs and
+are not taken; ``acc_dtype`` is semantic and stays.
 """
 
 import torch
 
 from ..utils.errors import check_no_autograd
-from . import _build
-from .cuda_mps import check_chain_args, f32, f32_input, tc_operands
+from .cuda_mps import PATHS, chain_launch, chain_path, check_chain_args
 from .stabilize import MIN_NORM
 
 
@@ -65,33 +66,21 @@ def epilogue_chain_plain(cores, left, x, acc_dtype=None):
 
 def epilogue_chain(cores, left, x, acc_dtype=None):
     """Launch wrapper: ``(v, log)`` from the chain kernel (CUDA tensors,
-    counted in ``epilogue_chain.launches``) or its plain version (CPU).
+    counted in ``epilogue_chain.launches`` and by path in
+    ``epilogue_chain.launches_by_path``) or its plain version (CPU).
     Raises ``TNError`` where autograd would record through it."""
     acc = _acc_dtype(acc_dtype)
-    n_sites, phys, bond, batch = check_chain_args(cores, left, None, x)
+    check_chain_args(cores, left, None, x)
     check_no_autograd("epilogue_chain", cores, left, x)
     if cores.device.type == "cpu":
         return epilogue_chain_plain(cores, left, x, acc)
     if cores.device.type != "cuda":
         raise ValueError(f"unsupported device {cores.device}")
-    lib, bf16, cores_k = tc_operands(cores, (left, x), phys, bond)
-    xf = f32_input(x)
-    left_f = left.to(cores.dtype).to(acc).float().contiguous()
-    v = torch.empty(batch, bond, dtype=acc, device=cores.device)
-    log = torch.empty(batch, dtype=torch.float32, device=cores.device)
-    # the guard compares in the carry dtype, as torch and XLA both do
-    thr = MIN_NORM if acc == torch.float32 else float(
-        torch.tensor(MIN_NORM, dtype=torch.bfloat16).float())
-    with torch.cuda.device(cores.device):
-        rc = lib.cn_mps_epilogue(
-            cores_k.data_ptr(), bf16, xf.data_ptr(),
-            left_f.data_ptr(), v.data_ptr(), int(acc == torch.bfloat16),
-            log.data_ptr(), n_sites, phys, bond, batch, f32(thr),
-            _build.stream_of(cores),
-        )
-    _build.check(rc, "cn_mps_epilogue")
+    path = chain_path(cores)
+    out = chain_launch("cn_mps_epilogue", path, cores, left, None, x, acc)
     epilogue_chain.launches += 1
-    return v, log
+    epilogue_chain.launches_by_path[path] += 1
+    return out
 
 
 def mps_evaluate_epilogue(cores, left, right, x, acc_dtype=None):
@@ -120,3 +109,4 @@ def mps_evaluate_epilogue(cores, left, right, x, acc_dtype=None):
 
 
 epilogue_chain.launches = 0
+epilogue_chain.launches_by_path = dict.fromkeys(PATHS[1:], 0)

@@ -67,12 +67,48 @@ def test_mpo_kernel_matches_plain_on_gpu(cuda_device, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("phys,bond", [(3, 96), (3, 128), (20, 24), (900, 4)])
+@pytest.mark.parametrize("phys,bond", [(3, 96), (3, 128), (20, 24), (900, 4), (2, 129),
+                                       (2, 192), (2, 256), (2, 520)])
 def test_chain_kernel_reach_on_gpu(cuda_device, dtype, phys, bond):
     # d = 3 at D > 64 (fp32) and d = 20 run a core ring shorter than one
-    # site; d = 900 reads x in place; #1 and #2 alike
-    shape = {"n_sites": 7, "phys": phys, "bond": bond, "batch": 40}
+    # site; d = 900 reads x in place; bonds above 128 run the streamed path
+    # (200 samples: four row tiles, the last one ragged, and enough that
+    # some are conditioned for bf16); #1 and #2 alike
+    path = "streamed" if bond > cuda_mps.MAX_BOND else "tensor_core"
+    shape = {"n_sites": 7, "phys": phys, "bond": bond, "batch": 200 if bond > 128 else 40,
+             "path": path}
     chip_smoke.compare_chains(shape, cuda_device, dtype, f"d={phys} D={bond}", seed=9)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_path_choice_on_gpu(cuda_device):
+    # the tensor-core path keeps every shape it takes (every d at 1 <= D <= 128:
+    # exactly where it reports a shared-memory plan), the streamed path takes
+    # every other one; a zero dimension has no path and raises ValueError
+    lib = cuda_mps.tc_library()
+    for bf16 in (0, 1):
+        for d in range(1, 65):
+            for bond in range(1, 521):
+                planned = lib.cn_mps_evaluate_smem(bf16, d, bond) >= 0
+                assert planned == (bond <= cuda_mps.MAX_BOND), (bf16, d, bond)
+                assert lib.cn_mps_path(bf16, d, bond) == (1 if planned else 2), (bf16, d, bond)
+    assert lib.cn_mps_path(0, 0, 64) == lib.cn_mps_path(1, 2, 0) == 0
+    zero = torch.zeros((3, 0, 8, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="take d and D >= 1"):
+        cuda_mps.cuda_mps_evaluate(zero, torch.zeros(8, device=cuda_device),
+                                   torch.zeros(8, device=cuda_device),
+                                   torch.zeros((2, 3, 0), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [chip_smoke.SMALL_MPS, chip_smoke.UNALIGNED_MPS,
+                                   *chip_smoke.REACH_MPS],
+                         ids=lambda s: f"d{s['phys']}-D{s['bond']}")
+def test_chain_streamed_yardstick_matches_plain_on_gpu(cuda_device, dtype, shape):
+    # the streamed path at shapes the entries give the tensor-core path
+    chip_smoke.compare_streamed_yardstick(shape, cuda_device, dtype,
+                                          f"d={shape['phys']} D={shape['bond']}", seed=10)
 
 
 @pytest.mark.cuda

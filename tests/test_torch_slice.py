@@ -103,3 +103,15 @@ def test_chip_smoke_streamed_main_path_rehearsal_on_cpu():
     assert set(runs) == {"mpo_expectation_streamed"}
     counts, _ = runs["mpo_expectation_streamed"]
     assert "mpo_env.streamed" in counts and set(counts.values()) == {0}
+
+
+def test_chip_smoke_streamed_chain_main_path_rehearsal_on_cpu():
+    # the flagship widened past bond 128 at a tiny size: both entries run
+    # their plain versions on the CPU (nothing is launched), and the checked
+    # samples agree with float64
+    shape = {**chip_smoke.FLAGSHIP_WIDE, "n_sites": 6, "bond": 136, "batch": 4}
+    runs = chip_smoke.streamed_chain_main_path(torch.device("cpu"), shape=shape, check=2)
+    assert set(runs) == {"mps_evaluate_streamed", "mps_evaluate_epilogue_streamed"}
+    for counts, _ in runs.values():
+        assert {"mps_evaluate.streamed", "mps_evaluate_epilogue.streamed"} <= set(counts)
+        assert set(counts.values()) == {0}
